@@ -1,0 +1,148 @@
+"""Device columns: a torch tensor plus an optional validity mask
+(the counterpart of spark_rapids_tpu/columnar/column.py).
+
+Columns have exact lengths: the reference pads to bucketed capacities
+for XLA's static shapes, which eager PyTorch does not need. ``validity``
+is a bool tensor (True = valid) or None for all-valid. Strings are
+``StringColumn``: int32 codes on the device into a sorted dictionary on
+the host, so code order is string order.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import DEFAULT_DEVICE
+from spark_rapids_tpu_torch.columnar import dtypes as dt
+
+
+class Scalar:
+    """A typed host scalar; ``value`` None is a typed NULL."""
+
+    __slots__ = ("dtype", "value")
+
+    def __init__(self, dtype: dt.DType, value):
+        self.dtype = dtype
+        self.value = value
+
+    @property
+    def is_null(self) -> bool:
+        return self.value is None
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"Scalar({self.dtype}, {self.value})"
+
+
+class Column:
+    __slots__ = ("dtype", "data", "validity")
+
+    def __init__(self, dtype: dt.DType, data: torch.Tensor,
+                 validity: Optional[torch.Tensor] = None):
+        self.dtype = dtype
+        self.data = data
+        self.validity = validity
+
+    @staticmethod
+    def from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,
+                   validity: Optional[np.ndarray] = None,
+                   device=DEFAULT_DEVICE) -> "Column":
+        values = np.asarray(values)
+        if dtype is None:
+            dtype = dt.from_numpy(values.dtype)
+        if dtype is dt.STRING:
+            return StringColumn.from_strings(values, validity, device)
+        buf = values.astype(dtype.np_dtype, copy=True)
+        vmask = None
+        if validity is not None:
+            vmask = np.asarray(validity, dtype=bool)
+            # null slots hold the sentinel, as the reference's uploads do
+            buf[~vmask] = dt.null_sentinel(dtype)
+            vmask = torch.from_numpy(vmask.copy()).to(device)
+        return Column(dtype, torch.from_numpy(buf).to(device), vmask)
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def gather(self, idx: torch.Tensor) -> "Column":
+        """Rows ``idx`` (int32 or int64 indices, all in range)."""
+        data = torch.index_select(self.data, 0, idx)
+        validity = None if self.validity is None else \
+            torch.index_select(self.validity, 0, idx)
+        return self._like(data, validity)
+
+    def _like(self, data, validity) -> "Column":
+        """Same type (and dictionary, for strings) over new tensors."""
+        return Column(self.dtype, data, validity)
+
+    def to_numpy(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """(values, validity) on the host; validity None if all-valid."""
+        data = self.data.cpu().numpy()
+        validity = None
+        if self.validity is not None:
+            validity = self.validity.cpu().numpy()
+            if validity.all():
+                validity = None
+        return data, validity
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"{type(self).__name__}({self.dtype}, n={self.num_rows}, "
+                f"nulls={'?' if self.validity is not None else 'no'})")
+
+
+class StringColumn(Column):
+    """int32 codes into ``dictionary``, a host object array of unique
+    strings sorted ascending."""
+
+    __slots__ = ("dictionary", "_dict_hashes")
+
+    def __init__(self, codes: torch.Tensor, dictionary: np.ndarray,
+                 validity: Optional[torch.Tensor] = None):
+        super().__init__(dt.STRING, codes, validity)
+        self.dictionary = dictionary
+        self._dict_hashes = None  # ops.hashing.dict_hashes cache
+
+    @staticmethod
+    def from_strings(values: Sequence[Optional[str]],
+                     validity: Optional[np.ndarray] = None,
+                     device=DEFAULT_DEVICE) -> "StringColumn":
+        """Sorted dictionary of the non-null values plus codes (the
+        reference's ``StringColumn.host_codes``); None entries and
+        ``validity`` False rows are null, with code 0."""
+        arr = np.asarray(values, dtype=object)
+        null = np.array([v is None for v in arr], dtype=bool)
+        if validity is not None:
+            null |= ~np.asarray(validity, dtype=bool)
+        present = arr[~null].astype(str)
+        if len(present):
+            dictionary, inv = np.unique(present, return_inverse=True)
+        else:
+            dictionary, inv = np.array([], dtype=str), np.array([], int)
+        codes = np.zeros(len(arr), dtype=np.int32)
+        codes[~null] = inv.astype(np.int32)
+        vmask = torch.from_numpy(~null).to(device) if null.any() else None
+        return StringColumn(torch.from_numpy(codes).to(device),
+                            np.asarray(dictionary, dtype=object), vmask)
+
+    def _like(self, data, validity) -> "StringColumn":
+        out = StringColumn(data, self.dictionary, validity)
+        out._dict_hashes = self._dict_hashes
+        return out
+
+    def to_numpy(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        codes, validity = Column.to_numpy(self)
+        if len(self.dictionary):
+            out = self.dictionary[np.clip(codes, 0,
+                                          len(self.dictionary) - 1)]
+        else:
+            out = np.full(len(codes), None, dtype=object)
+        out = np.asarray(out, dtype=object)
+        if validity is not None:
+            out[~validity] = None
+        return out, validity

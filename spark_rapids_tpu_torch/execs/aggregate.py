@@ -1,0 +1,77 @@
+"""Hash-aggregate exec (the counterpart of
+spark_rapids_tpu/execs/aggregate.py) in the reference's "complete" mode:
+each batch is projected to (keys, aggregate inputs) and aggregated with
+the update ops; the result is concatenated with the running partials and
+re-aggregated with the merge ops; after the last batch the final
+projection evaluates each aggregate over its partials."""
+from __future__ import annotations
+
+from typing import Iterator, List
+
+from spark_rapids_tpu_torch.columnar import dtypes as dt
+from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch, Schema,
+                                                   concat_batches)
+from spark_rapids_tpu_torch.execs.base import TorchExec
+from spark_rapids_tpu_torch.execs.basic import project
+from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
+                                                     Expression)
+from spark_rapids_tpu_torch.ops.groupby import AggSpec, groupby_aggregate
+from spark_rapids_tpu_torch.plan.nodes import AggCall
+
+
+class HashAggregateExec(TorchExec):
+    def __init__(self, grouping: List[Expression], aggs: List[AggCall],
+                 child: TorchExec, schema: Schema, device):
+        super().__init__([child], schema)
+        if not grouping:
+            raise NotImplementedError(
+                "aggregates without grouping keys are not ported")
+        self.device = device
+        nkeys = len(grouping)
+        # input projection: keys, then each aggregate's input once
+        self.input_exprs: List[Expression] = list(grouping)
+        self.update_specs: List[AggSpec] = []
+        for call in aggs:
+            ordinal = -1
+            if call.fn.input is not None:
+                ordinal = len(self.input_exprs)
+                self.input_exprs.append(call.fn.input)
+            for op in call.fn.update_ops():
+                self.update_specs.append(
+                    AggSpec(op, ordinal if op != "count_star" else -1))
+        self.input_types = [e.dtype for e in self.input_exprs]
+        # merge specs re-aggregate (keys..., partials...) batches
+        self.merge_specs: List[AggSpec] = []
+        self.merge_types: List[dt.DType] = [e.dtype for e in grouping]
+        final: List[Expression] = [BoundReference(i, e.dtype)
+                                   for i, e in enumerate(grouping)]
+        p = nkeys
+        for call in aggs:
+            refs = []
+            for op, t in zip(call.fn.merge_ops(), call.fn.partial_types()):
+                self.merge_specs.append(AggSpec(op, p))
+                self.merge_types.append(t)
+                refs.append(BoundReference(p, t))
+                p += 1
+            final.append(Alias(call.fn.evaluate(refs), call.name))
+        self.final_exprs = final
+        self.nkeys = nkeys
+
+    def _aggregate(self, batch, specs, types) -> ColumnarBatch:
+        return groupby_aggregate(batch, list(range(self.nkeys)), specs,
+                                 types)[0]
+
+    def execute(self) -> Iterator[ColumnarBatch]:
+        running = None
+        for b in self.children[0].execute():
+            if b.num_rows == 0:
+                continue
+            part = self._aggregate(project(b, self.input_exprs, self.device),
+                                   self.update_specs, self.input_types)
+            running = part if running is None else self._aggregate(
+                concat_batches([running, part]), self.merge_specs,
+                self.merge_types)
+        if running is None:
+            yield ColumnarBatch.empty(self.schema, self.device)
+            return
+        yield project(running, self.final_exprs, self.device)

@@ -1,0 +1,76 @@
+"""Scan, filter and project execs (the counterpart of
+spark_rapids_tpu/execs/basic.py)."""
+from __future__ import annotations
+
+from typing import Iterator, List
+
+import numpy as np
+
+from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch, Schema,
+                                                   batch_from_numpy)
+from spark_rapids_tpu_torch.execs.base import TorchExec
+from spark_rapids_tpu_torch.expressions.base import (EvalContext,
+                                                     Expression, broadcast)
+from spark_rapids_tpu_torch.ops.filter import compact_batch
+from spark_rapids_tpu_torch.plan.nodes import InMemorySource
+
+
+class ScanExec(TorchExec):
+    """Host columns uploaded in slices of ``batch_rows`` rows."""
+
+    def __init__(self, source: InMemorySource, schema: Schema,
+                 batch_rows: int, device):
+        super().__init__([], schema)
+        self.source = source
+        self.batch_rows = batch_rows
+        self.device = device
+
+    def execute(self) -> Iterator[ColumnarBatch]:
+        n = self.source.num_rows()
+        if n == 0:
+            yield ColumnarBatch.empty(self.schema, self.device)
+            return
+        data, validity = self.source.data, self.source.validity
+        for lo in range(0, n, self.batch_rows):
+            hi = min(lo + self.batch_rows, n)
+            cols = [np.asarray(data[name])[lo:hi]
+                    for name in self.schema.names]
+            valids = [None if validity.get(name) is None else
+                      np.asarray(validity[name])[lo:hi]
+                      for name in self.schema.names]
+            yield batch_from_numpy(cols, self.schema.types, valids,
+                                   device=self.device)
+
+
+class FilterExec(TorchExec):
+    """Predicate, then stable compaction of the rows it keeps."""
+
+    def __init__(self, condition: Expression, child: TorchExec, device):
+        super().__init__([child], child.schema)
+        self.condition = condition
+        self.device = device
+
+    def execute(self) -> Iterator[ColumnarBatch]:
+        for b in self.children[0].execute():
+            ctx = EvalContext.from_batch(b, self.device)
+            v = broadcast(self.condition.eval(ctx), ctx)
+            yield compact_batch(b, v.data, v.validity)
+
+
+class ProjectExec(TorchExec):
+    def __init__(self, exprs: List[Expression], child: TorchExec,
+                 schema: Schema, device):
+        super().__init__([child], schema)
+        self.exprs = exprs
+        self.device = device
+
+    def execute(self) -> Iterator[ColumnarBatch]:
+        for b in self.children[0].execute():
+            yield project(b, self.exprs, self.device)
+
+
+def project(batch: ColumnarBatch, exprs: List[Expression], device
+            ) -> ColumnarBatch:
+    ctx = EvalContext.from_batch(batch, device)
+    return ColumnarBatch([broadcast(e.eval(ctx), ctx).to_column()
+                          for e in exprs], batch.num_rows)

@@ -1,0 +1,40 @@
+"""Broadcast hash join exec (the counterpart of
+spark_rapids_tpu/execs/joins.py): the build child is drained and
+prepared once (hash, sort, probe table), and every stream batch probes
+it."""
+from __future__ import annotations
+
+from typing import Iterator, List
+
+from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch, Schema,
+                                                   concat_batches)
+from spark_rapids_tpu_torch.execs.base import TorchExec
+from spark_rapids_tpu_torch.ops.join import equi_join, prepare_build
+
+
+class BroadcastHashJoinExec(TorchExec):
+    """Inner equi-join; children[0] streams, children[1] builds."""
+
+    def __init__(self, left: TorchExec, right: TorchExec,
+                 left_keys: List[int], right_keys: List[int],
+                 schema: Schema, device):
+        super().__init__([left, right], schema)
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.device = device
+
+    def execute(self) -> Iterator[ColumnarBatch]:
+        left_types = list(self.children[0].schema.types)
+        right_types = list(self.children[1].schema.types)
+        parts = [b for b in self.children[1].execute() if b.num_rows]
+        build = concat_batches(parts) if parts else \
+            ColumnarBatch.empty(self.children[1].schema, self.device)
+        prepared = prepare_build(build, self.right_keys, right_types,
+                                 [left_types[o] for o in self.left_keys])
+        saw = False
+        for b in self.children[0].execute():
+            if b.num_rows == 0 and saw:
+                continue
+            saw = True
+            yield equi_join(b, build, self.left_keys, self.right_keys,
+                            left_types, right_types, prepared=prepared)[0]

@@ -1,0 +1,73 @@
+"""Aggregate functions (the counterpart of
+spark_rapids_tpu/expressions/aggregates.py): each declares its update
+half (raw rows -> partial columns) and merge half (partials -> partials)
+as group-by ops, plus its final evaluation over the partials. The
+aggregate exec drives both halves."""
+from __future__ import annotations
+
+from typing import List, Optional
+
+from spark_rapids_tpu_torch.columnar import dtypes as dt
+from spark_rapids_tpu_torch.expressions.base import Expression
+
+
+class AggregateFunction(Expression):
+    """children[0], if any, is the input expression."""
+
+    distinct = False
+
+    @property
+    def input(self) -> Optional[Expression]:
+        return self.children[0] if self.children else None
+
+    def partial_types(self) -> List[dt.DType]:
+        raise NotImplementedError
+
+    def update_ops(self) -> List[str]:
+        raise NotImplementedError
+
+    def merge_ops(self) -> List[str]:
+        raise NotImplementedError
+
+    def evaluate(self, partials: List[Expression]) -> Expression:
+        return partials[0]
+
+
+class Sum(AggregateFunction):
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        t = self.children[0].dtype
+        return dt.INT64 if (t.is_integral or t is dt.BOOLEAN) \
+            else dt.FLOAT64
+
+    def partial_types(self):
+        return [self.dtype]
+
+    def update_ops(self):
+        return ["sum"]
+
+    def merge_ops(self):
+        return ["sum"]
+
+
+class Count(AggregateFunction):
+    """count(expr); count(*) when child is None."""
+
+    def __init__(self, child: Optional[Expression] = None):
+        super().__init__([child] if child is not None else [])
+
+    @property
+    def dtype(self):
+        return dt.INT64
+
+    def partial_types(self):
+        return [dt.INT64]
+
+    def update_ops(self):
+        return ["count" if self.children else "count_star"]
+
+    def merge_ops(self):
+        return ["sum"]

@@ -1,0 +1,140 @@
+"""Plan nodes (the counterpart of spark_rapids_tpu/plan/nodes.py): the
+node types q26 uses. Expressions inside nodes are bound: their
+``BoundReference`` ordinals index the child's output schema.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from spark_rapids_tpu_torch.columnar import dtypes as dt
+from spark_rapids_tpu_torch.columnar.batch import Schema
+from spark_rapids_tpu_torch.expressions.aggregates import AggregateFunction
+from spark_rapids_tpu_torch.expressions.base import Alias, Expression
+from spark_rapids_tpu_torch.ops.sortkeys import SortKeySpec
+
+
+def expr_name(e: Expression, i: int) -> str:
+    return e.alias if isinstance(e, Alias) else f"col{i}"
+
+
+class PlanNode:
+    def __init__(self, children: Sequence["PlanNode"]):
+        self.children = list(children)
+
+    def output_schema(self) -> Schema:
+        raise NotImplementedError
+
+    def describe(self) -> str:
+        return type(self).__name__
+
+
+class InMemorySource:
+    """Host-resident columns: ``data`` maps name -> numpy array (object
+    arrays for strings, None = null), ``validity`` name -> bool mask."""
+
+    def __init__(self, data: dict, schema: Optional[Schema] = None,
+                 validity: Optional[dict] = None):
+        self.data = data
+        self.validity = validity or {}
+        self._schema = schema or Schema(
+            list(data), [dt.from_numpy(np.asarray(v).dtype)
+                         for v in data.values()])
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def num_rows(self) -> int:
+        for v in self.data.values():
+            return len(v)
+        return 0
+
+
+class ScanNode(PlanNode):
+    def __init__(self, source: InMemorySource):
+        super().__init__([])
+        self.source = source
+
+    def output_schema(self) -> Schema:
+        return self.source.schema()
+
+
+class ProjectNode(PlanNode):
+    def __init__(self, exprs: List[Expression], child: PlanNode,
+                 names: Optional[List[str]] = None):
+        super().__init__([child])
+        self.exprs = list(exprs)
+        self.names = names or [expr_name(e, i) for i, e in enumerate(exprs)]
+
+    def output_schema(self) -> Schema:
+        return Schema(self.names, [e.dtype for e in self.exprs])
+
+
+class FilterNode(PlanNode):
+    def __init__(self, condition: Expression, child: PlanNode):
+        super().__init__([child])
+        self.condition = condition
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+
+@dataclasses.dataclass
+class AggCall:
+    """One named aggregate output."""
+
+    fn: AggregateFunction
+    name: str
+
+
+class AggregateNode(PlanNode):
+    """Group-by aggregate, raw input to final results (the reference's
+    "complete" mode). Output: grouping columns then aggregates."""
+
+    def __init__(self, grouping: List[Expression], aggs: List[AggCall],
+                 child: PlanNode,
+                 grouping_names: Optional[List[str]] = None):
+        super().__init__([child])
+        self.grouping = list(grouping)
+        self.aggs = list(aggs)
+        self.grouping_names = grouping_names or [
+            expr_name(e, i) for i, e in enumerate(grouping)]
+
+    def output_schema(self) -> Schema:
+        return Schema(
+            list(self.grouping_names) + [a.name for a in self.aggs],
+            [e.dtype for e in self.grouping] + [a.fn.dtype
+                                                for a in self.aggs])
+
+
+class SortNode(PlanNode):
+    """ORDER BY over the child's ordinals."""
+
+    def __init__(self, specs: List[SortKeySpec], child: PlanNode):
+        super().__init__([child])
+        self.specs = list(specs)
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+
+class JoinNode(PlanNode):
+    """Equi-join on key ordinals; output is left columns then right."""
+
+    def __init__(self, kind: str, left: PlanNode, right: PlanNode,
+                 left_keys: List[int], right_keys: List[int]):
+        super().__init__([left, right])
+        if len(left_keys) != len(right_keys) or not left_keys:
+            raise ValueError("an equi-join needs matching key lists")
+        self.kind = kind
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+
+    def output_schema(self) -> Schema:
+        ls, rs = (c.output_schema() for c in self.children)
+        return Schema(ls.names + rs.names, ls.types + rs.types)
+
+    def describe(self) -> str:
+        return f"JoinNode[{self.kind}]"

@@ -1,0 +1,55 @@
+"""Plan -> exec conversion (the counterpart of
+spark_rapids_tpu/plan/overrides.py with fusion and adaptive execution
+off). Each ported node type converts to its exec; any other node raises.
+Tagging and CPU fallback are not ported.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from spark_rapids_tpu_torch import DEFAULT_DEVICE
+from spark_rapids_tpu_torch.execs.aggregate import HashAggregateExec
+from spark_rapids_tpu_torch.execs.base import TorchExec
+from spark_rapids_tpu_torch.execs.basic import (FilterExec, ProjectExec,
+                                                ScanExec)
+from spark_rapids_tpu_torch.execs.joins import BroadcastHashJoinExec
+from spark_rapids_tpu_torch.execs.sort import SortExec
+from spark_rapids_tpu_torch.plan import nodes as pn
+
+#: rows per uploaded scan batch (the reference's
+#: rapids.tpu.sql.reader.batchSizeRows, same key and default)
+BATCH_SIZE_ROWS = "rapids.tpu.sql.reader.batchSizeRows"
+_DEFAULTS = {BATCH_SIZE_ROWS: 1 << 21}
+
+
+def apply_overrides(plan: pn.PlanNode, conf: Optional[dict] = None,
+                    device=DEFAULT_DEVICE) -> TorchExec:
+    """The exec tree for ``plan``, running on ``device``."""
+    conf = {**_DEFAULTS, **(conf or {})}
+    unknown = set(conf) - set(_DEFAULTS)
+    if unknown:
+        raise ValueError(f"unknown conf keys: {sorted(unknown)}")
+    return _convert(plan, conf, device)
+
+
+def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
+    kids = [_convert(c, conf, device) for c in node.children]
+    schema = node.output_schema()
+    if isinstance(node, pn.ScanNode):
+        return ScanExec(node.source, schema, int(conf[BATCH_SIZE_ROWS]),
+                        device)
+    if isinstance(node, pn.FilterNode):
+        return FilterExec(node.condition, kids[0], device)
+    if isinstance(node, pn.ProjectNode):
+        return ProjectExec(node.exprs, kids[0], schema, device)
+    if isinstance(node, pn.AggregateNode):
+        return HashAggregateExec(node.grouping, node.aggs, kids[0], schema,
+                                 device)
+    if isinstance(node, pn.SortNode):
+        return SortExec(node.specs, kids[0], device)
+    if isinstance(node, pn.JoinNode):
+        if node.kind != "inner":
+            raise NotImplementedError(f"{node.kind} join is not ported")
+        return BroadcastHashJoinExec(kids[0], kids[1], node.left_keys,
+                                     node.right_keys, schema, device)
+    raise NotImplementedError(f"{node.describe()} is not ported")
