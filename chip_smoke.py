@@ -11,19 +11,33 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
 2. build: every CUDA source of the port through ``nvcc`` for sm_90a, all
    at once, with the compiler's register and shared-memory report;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (TPCx-BB sf 10: a 28.8M-row mask for the
+   the main paths' shapes (TPCx-BB sf 10: a 28.8M-row mask for the
    partition kernel, an ~18k-row Books build probed by 28.8M stream
    hashes, a radix argsort over the ~70k HAVING survivors and over
-   28.8M int64 keys). Results must be equal; times come from CUDA events
-   over warmed repeated launches, beside the bytes bound at 3.35 TB/s and
+   28.8M int64 keys; TPC-H sf 10: the match table over part's p_type
+   dictionary and the sf-10 c_phone dictionary, and over a 1M-entry
+   table past the reference's 64 MiB window budget; substring over the
+   c_phone dictionary and over a table of pos / length edges). Results
+   must be equal; times come from CUDA events over warmed repeated
+   launches, beside the bytes bound at 3.35 TB/s and, where one exists,
    one PyTorch library call computing the same function;
 4. the q5lite step: 4M rows, 65,536 keys, seed 7, against a numpy
    oracle (groups, keys and counts exact, sums within 1e-9 relative);
 5. TPCx-BB q26 at sf 10 (store_sales 28.8M rows, item 180k, 1M
    customers) through apply_overrides -> collect, exactly equal to a
-   numpy oracle, with every kernel launched during the query;
-6. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+   numpy oracle, with K1, K2 and K3 launched during the query;
+6. TPC-H q14 at sf 10 (lineitem 60M rows in 8 generation chunks, part
+   2M), within 1e-9 relative of a numpy oracle, with K4, K3 and K1
+   launched during the query;
+7. TPC-H q22 at sf 10 (customer 1.5M rows, orders 15M), country codes
+   and counts exact and balances within 1e-9 relative of a numpy
+   oracle, with K6, K3, K2 and K1 launched during the query, and the
+   substring step split into kernel time and host dictionary rebuild;
+8. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
+
+Each query phase sets the launch counts to 0 just before its timed run
+and reads them just after.
 
 It imports nothing of JAX or of spark_rapids_tpu. It needs one CUDA card
 and this repository around it; without either it fails.
@@ -37,8 +51,16 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# the table's highest integer rate (int8, dense): a byte comparison is
+# one operation, so operations over this rate are a lower bound
+INT8_OPS_PER_S = 1.979e15
 SF = 10
 SEED_Q5 = 7
+# kernels of each timed query (launch counts must be positive there)
+PATH_KERNELS = {"q26": ("partition_order", "radix_order", "probe"),
+                "q14": ("match_table", "probe", "partition_order"),
+                "q22": ("substring", "probe", "radix_order",
+                        "partition_order")}
 
 
 def _smi() -> str:
@@ -87,6 +109,31 @@ def phase_build(nk):
                 print(f"ptxas {stem}: {line.strip()}")
 
 
+def _record(name, source, replaces, got, want, ms, plain_ms, lib_ms,
+            nbytes, shape, ops=0, show=True):
+    """One kernel-vs-plain case (a JSON line unless ``show`` is False);
+    raises if they differ. The bound is the larger of the bytes over the
+    memory rate and the operations over the integer rate."""
+    import torch
+
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "shape": shape, "equal": equal,
+           "max_abs_err": max(_max_abs_err(g, w)
+                              for g, w in zip(got, want)),
+           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if show:
+        print(json.dumps(rec))
+    if not equal:
+        raise AssertionError(f"{name} ({shape}) differs from its "
+                             f"plain version")
+    return rec
+
+
 def phase_kernels(dev, ss, item, q26_cid):
     """Kernel vs plain at the path's shapes. Returns name -> record."""
     import numpy as np
@@ -100,22 +147,6 @@ def phase_kernels(dev, ss, item, q26_cid):
 
     recs = {}
 
-    def record(name, source, replaces, got, want, ms, plain_ms, lib_ms,
-               nbytes, shape):
-        equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        rec = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "shape": shape, "equal": equal,
-               "max_abs_err": max(_max_abs_err(g, w)
-                                  for g, w in zip(got, want)),
-               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_by": "bytes"}
-        print(json.dumps(rec))
-        if not equal:
-            raise AssertionError(f"{name} ({shape}) differs from its "
-                                 f"plain version")
-        return rec
-
     # K1: which of the 28.8M sales are of a Books item
     books = np.zeros(int(item["i_item_sk"].max()) + 1, dtype=bool)
     books[item["i_item_sk"][item["i_category"] == "Books"]] = True
@@ -123,7 +154,7 @@ def phase_kernels(dev, ss, item, q26_cid):
     n = mask.shape[0]
     got = ksort.partition_order(mask)
     want = ksort.partition_order_plain(mask)
-    recs["partition_order"] = record(
+    recs["partition_order"] = _record(
         "partition_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
         "spark_rapids_tpu/native/kernels/sort.py:41",
         [got], [want.to(torch.int32)],
@@ -142,7 +173,7 @@ def phase_kernels(dev, ss, item, q26_cid):
     table = kjoin.build_table(sb_h)
     got = kjoin.probe(table, h_p)
     want = kjoin.probe_plain(table, h_p)
-    recs["probe"] = record(
+    recs["probe"] = _record(
         "probe", "spark_rapids_tpu_torch/kernels/csrc/join.cu",
         "spark_rapids_tpu/native/kernels/join.py:114",
         list(got), list(want),
@@ -160,7 +191,7 @@ def phase_kernels(dev, ss, item, q26_cid):
     keys, widths = [rank, cid], [1, None]
     got = ksort.radix_order(keys, widths)
     want = ksort.radix_order_plain(keys, widths)
-    recs["radix_order"] = record(
+    recs["radix_order"] = _record(
         "radix_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
         "spark_rapids_tpu/native/kernels/sort.py:87",
         [got], [want],
@@ -171,7 +202,7 @@ def phase_kernels(dev, ss, item, q26_cid):
     big = torch.from_numpy(ss["ss_customer_sk"]).to(dev)
     got = ksort.radix_order([big])
     want = ksort.radix_order_plain([big])
-    recs["radix_order_28m"] = record(
+    recs["radix_order_28m"] = _record(
         "radix_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
         "spark_rapids_tpu/native/kernels/sort.py:87",
         [got], [want],
@@ -181,6 +212,109 @@ def phase_kernels(dev, ss, item, q26_cid):
         big.numel() * (8 + 4), f"keys[{big.numel()}]")
     torch.cuda.synchronize()
     return recs
+
+
+def _to_dev(a, dev):
+    import torch
+
+    return torch.from_numpy(a).to(dev)
+
+
+def _string_table(dic, dev):
+    """(chars, lens) of a dictionary's char table on ``dev``."""
+    from spark_rapids_tpu_torch.kernels import strings as kstr
+
+    chars, lens, _ = kstr.encode_dictionary(dic)
+    return _to_dev(chars, dev), _to_dev(lens, dev)
+
+
+def phase_string_kernels(dev, part, customer):
+    """K4 and K6 against their plain versions at q14's and q22's shapes
+    and past the reference's limits. Returns name -> record of the main
+    path's case, with every case under ``cases``."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.kernels import strings as kstr
+
+    src = "spark_rapids_tpu_torch/kernels/csrc/strings.cu"
+    k4, k6 = [], []
+
+    def k4_case(label, chars, lens, kind, needle):
+        nb = needle.encode()
+        n, L = chars.shape
+        got = kstr.match_table(chars, lens, kind, nb)
+        want = kstr.match_table_plain(chars, lens, kind, nb)
+        m = len(nb)
+        # byte comparisons of a scan without early exits, over this data
+        win = (lens.to(torch.int64) - m + 1).clamp(min=0) if \
+            kind == "contains" else (lens >= m).to(torch.int64)
+        rec = _record(
+            "match_table", src, "spark_rapids_tpu/native/kernels/"
+            "strings.py:79", [got], [want],
+            _time_ms(lambda: kstr.match_table(chars, lens, kind, nb), 50),
+            _time_ms(lambda: kstr.match_table_plain(chars, lens, kind, nb),
+                     3),
+            None, n * L + n * 4 + m + n, f"{label} {kind} {needle!r} "
+            f"[{n}, {L}]", ops=int(win.sum()) * m)
+        k4.append(rec)
+
+    def k6_case(label, chars, lens, pos, length, iters=50, show=True):
+        n, L = chars.shape
+        got = kstr.substring_table(chars, lens, pos, length)
+        want = kstr.substring_table_plain(chars, lens, pos, length)
+        rec = _record(
+            "substring", src, "spark_rapids_tpu/native/kernels/"
+            "strings.py:285", list(got), list(want),
+            _time_ms(lambda: kstr.substring_table(chars, lens, pos, length),
+                     iters),
+            _time_ms(lambda: kstr.substring_table_plain(chars, lens, pos,
+                                                        length), 3),
+            None, 2 * (n * L + n * 4), f"{label} substring({pos}, "
+            f"{length}) [{n}, {L}]", show=show)
+        k6.append(rec)
+
+    # q14: StartsWith(p_type, 'PROMO') over part's dictionary
+    p_type = _string_table(np.unique(part["p_type"].astype(str))
+                           .astype(object), dev)
+    k4_case("p_type", *p_type, "starts", "PROMO")
+    # q22: the sf-10 c_phone dictionary
+    phone = _string_table(np.unique(customer["c_phone"].astype(str))
+                          .astype(object), dev)
+    for kind, needle in (("starts", "13-"), ("ends", "-1000"),
+                         ("contains", "99-1")):
+        k4_case("c_phone", *phone, kind, needle)
+    # contains past the reference's window budget: 1M entries, L = 64
+    r = np.random.default_rng(2)
+    n, L = 1 << 20, 64
+    lens = r.integers(0, L + 1, n).astype(np.int32)
+    chars = np.frombuffer(b"abcd-", np.uint8)[r.integers(0, 5, (n, L))]
+    chars[np.arange(L)[None, :] >= lens[:, None]] = 0
+    needle = "dc-ba"
+    if n * (L - len(needle) + 1) * len(needle) <= 64 << 20:
+        raise AssertionError("the seeded table must exceed the budget")
+    k4_case("seeded", _to_dev(chars, dev), _to_dev(lens, dev),
+            "contains", needle)
+    # q22: substring(c_phone, 1, 2), then the pos / length edges
+    k6_case("c_phone", *phone, 1, 2)
+    edge = (_to_dev(chars[:100_000, :32].copy(), dev),
+            _to_dev(np.minimum(lens[:100_000], 32), dev))
+    for pos in (-20, -3, 0, 1, 5, 40):
+        for length in (None, 0, -1, 2, 100):
+            k6_case("edges", *edge, pos, length, iters=5, show=False)
+    edges = k6[1:]
+    summary = {k: edges[0][k] for k in ("name", "bound_ms", "bound_by")}
+    summary.update(
+        shape=f"edges [{edge[0].shape[0]}, {edge[0].shape[1]}] x "
+        f"{len(edges)} (pos, length) cases", equal=True,
+        kernel_ms=max(c["kernel_ms"] for c in edges),
+        plain_ms=max(c["plain_ms"] for c in edges))
+    print(json.dumps(summary))
+    torch.cuda.synchronize()
+    recs = {"match_table": dict(k4[0]), "substring": dict(k6[0])}
+    recs["match_table"]["cases"] = k4
+    recs["substring"]["cases"] = [k6[0], summary]
+    return recs, phone
 
 
 def phase_q5lite(dev):
@@ -215,18 +349,18 @@ def phase_q5lite(dev):
     return rec
 
 
-def phase_q26(dev, ss, item, want, nk):
-    import numpy as np
+def _run_query(name, dev, plan_fn, nk):
+    """One warm run, then a timed run with the launch counts set to 0
+    just before it and read just after. Returns (result, record)."""
     import torch
 
-    from spark_rapids_tpu_torch.benchmarks import tpcxbb
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
     def run():
-        return collect(apply_overrides(tpcxbb.q26(ss, item), device=dev))
+        return collect(apply_overrides(plan_fn(), device=dev))
 
-    run()  # warm: caching allocator and library handles
+    run()  # warm: caching allocator, library handles, built kernels
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     nk.reset_launches()
@@ -235,19 +369,85 @@ def phase_q26(dev, ss, item, want, nk):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(nk.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    if list(got) != list(want):
-        raise AssertionError(f"q26 columns {list(got)} != {list(want)}")
-    for name, col in want.items():
-        np.testing.assert_array_equal(got[name], col)
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in PATH_KERNELS[name] if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"q26 never launched {missing}")
-    rec = {"phase": "q26", "sf": SF, "store_sales_rows":
-           len(ss["ss_item_sk"]), "item_rows": len(item["i_item_sk"]),
-           "result_rows": len(want["cid"]), "warm_wall_s": wall,
-           "peak_allocated_bytes": peak, "launches": launches,
-           "matches_oracle": True}
+        raise AssertionError(f"{name} never launched {missing}")
+    return got, {"phase": name, "sf": SF, "warm_wall_s": wall,
+                 "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                 "launches": launches}
+
+
+def _check_columns(name, got, want):
+    import numpy as np
+
+    if list(got) != list(want):
+        raise AssertionError(f"{name} columns {list(got)} != {list(want)}")
+    for col, w in want.items():
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(np.asarray(got[col], np.float64), w,
+                                       rtol=1e-9, atol=0, err_msg=col)
+        elif not np.array_equal(np.asarray(got[col]), w):
+            raise AssertionError(f"{name}: column {col} differs")
+
+
+def phase_q26(dev, ss, item, want, nk):
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+
+    got, rec = _run_query("q26", dev, lambda: tpcxbb.q26(ss, item), nk)
+    _check_columns("q26", got, want)
+    rec.update(store_sales_rows=len(ss["ss_item_sk"]),
+               item_rows=len(item["i_item_sk"]),
+               result_rows=len(want["cid"]), matches_oracle=True)
+    print(json.dumps(rec))
+    return rec
+
+
+def phase_q14(dev, lineitem, part, nk):
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    want = tpch.q14_numpy(lineitem, part)
+    got, rec = _run_query("q14", dev, lambda: tpch.q14(lineitem, part), nk)
+    _check_columns("q14", got, want)
+    rec.update(lineitem_rows=len(lineitem["l_partkey"]),
+               part_rows=len(part["p_partkey"]),
+               promo_revenue=float(got["promo_revenue"][0]),
+               oracle=float(want["promo_revenue"][0]), matches_oracle=True)
+    print(json.dumps(rec))
+    return rec
+
+
+def phase_q22(dev, customer, orders, phone, nk):
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.kernels import strings as kstr
+
+    want = tpch.q22_numpy(customer, orders)
+    got, rec = _run_query("q22", dev, lambda: tpch.q22(customer, orders),
+                          nk)
+    _check_columns("q22", got, want)
+    # the substring step on the c_phone dictionary, split: host encode of
+    # the dictionary, the kernel, the host rebuild of the sliced one
+    dic = np.unique(customer["c_phone"].astype(str)).astype(object)
+    t0 = time.perf_counter()
+    kstr.encode_dictionary(dic)
+    encode_s = time.perf_counter() - t0
+    kernel_ms = _time_ms(lambda: kstr.substring_table(*phone, 1, 2), 20)
+    out_chars, _ = kstr.substring_table(*phone, 1, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_dict, _ = kstr.rebuild_dictionary(out_chars)
+    rebuild_s = time.perf_counter() - t0
+    rec.update(customer_rows=len(customer["c_custkey"]),
+               orders_rows=len(orders["o_custkey"]),
+               c_phone_entries=len(dic), cntrycode_entries=len(new_dict),
+               groups=len(want["cntrycode"]),
+               cntrycode=list(got["cntrycode"]),
+               numcust=[int(x) for x in got["numcust"]],
+               substring_kernel_ms=kernel_ms,
+               substring_host_rebuild_ms=rebuild_s * 1e3,
+               c_phone_host_encode_ms=encode_s * 1e3, matches_oracle=True)
     print(json.dumps(rec))
     return rec
 
@@ -264,7 +464,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from spark_rapids_tpu_torch import kernels as nk
-        from spark_rapids_tpu_torch.benchmarks import datagen, tpcxbb
+        from spark_rapids_tpu_torch.benchmarks import datagen, tpcds, tpcxbb
     except ImportError as e:
         print(f"FAIL: run chip_smoke.py from a checkout of the "
               f"repository ({e})")
@@ -272,6 +472,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     phase = "device"
+    runs = {}
     try:
         smi = _smi()
         print(f"nvidia-smi: {smi}")
@@ -282,18 +483,33 @@ def main() -> int:
         phase_build(nk)
         phase = "data"
         t0 = time.perf_counter()
-        ss = datagen.gen_store_sales(SF)
-        item = datagen.gen_item(SF)
+        ss = tpcds.gen_store_sales(SF)
+        item = tpcds.gen_item(SF)
         want = tpcxbb.q26_numpy(ss, item)
+        lineitem, part = datagen.gen_lineitem(SF), datagen.gen_part(SF)
+        customer, orders = datagen.gen_customer(SF), datagen.gen_orders(SF)
         print(f"data: sf {SF}, {len(ss['ss_item_sk'])} sales, "
-              f"{len(item['i_item_sk'])} items, {len(want['cid'])} result "
-              f"rows, {time.perf_counter() - t0:.1f} s")
+              f"{len(item['i_item_sk'])} items, {len(want['cid'])} q26 "
+              f"rows; {len(lineitem['l_partkey'])} lineitem, "
+              f"{len(part['p_partkey'])} part, "
+              f"{len(customer['c_custkey'])} customer, "
+              f"{len(orders['o_custkey'])} orders; "
+              f"{time.perf_counter() - t0:.1f} s")
         phase = "kernels"
         recs = phase_kernels(dev, ss, item, want["cid"])
+        phase = "string kernels"
+        srecs, phone = phase_string_kernels(dev, part, customer)
+        recs.update(srecs)
         phase = "q5lite"
         phase_q5lite(dev)
         phase = "q26"
-        q26 = phase_q26(dev, ss, item, want, nk)
+        runs["q26"] = phase_q26(dev, ss, item, want, nk)
+        del ss, item
+        phase = "q14"
+        runs["q14"] = phase_q14(dev, lineitem, part, nk)
+        del lineitem
+        phase = "q22"
+        runs["q22"] = phase_q22(dev, customer, orders, phone, nk)
     except Exception as e:  # report the failing phase, print no result
         import traceback
 
@@ -301,18 +517,26 @@ def main() -> int:
         print(f"FAIL in phase {phase}: {type(e).__name__}: {e}")
         return 1
     kernels = []
-    for key in ("partition_order", "radix_order", "probe"):
+    for key in ("partition_order", "radix_order", "probe", "match_table",
+                "substring"):
         r = recs[key]
         entry = {k: r[k] for k in ("name", "route", "source", "replaces",
                                    "equal", "max_abs_err", "bound_ms",
                                    "bound_by", "library_ms", "shape")}
-        entry.update(launches=q26["launches"][key], ms=r["kernel_ms"],
+        by_path = {q: run["launches"][key] for q, run in runs.items()
+                   if key in PATH_KERNELS[q]}
+        entry.update(launches=sum(by_path.values()),
+                     launches_by_path=by_path, ms=r["kernel_ms"],
                      plain_ms=r["plain_ms"])
         if key == "radix_order":
             big = recs["radix_order_28m"]
             entry["at_28800000_keys"] = {
                 k: big[k] for k in ("equal", "kernel_ms", "plain_ms",
                                     "library_ms", "bound_ms")}
+        if "cases" in r:
+            entry["cases"] = [{k: c[k] for k in (
+                "shape", "equal", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by")} for c in r["cases"]]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")

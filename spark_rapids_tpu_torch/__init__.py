@@ -2,8 +2,9 @@
 
 The JAX package ``spark_rapids_tpu`` is the reference; this package does
 the same relational work on torch tensors and never imports it (nor JAX,
-pandas or pyarrow). What is ported so far is the path of TPCx-BB q26
-through the unfused exec tree and of the q5lite filter-groupby step:
+pandas or pyarrow). What is ported so far is the path of TPCx-BB q26 and
+TPC-H q14 and q22 through the unfused exec tree, and of the q5lite
+filter-groupby step:
 
     plan.nodes -> plan.overrides.apply_overrides -> execs -> ops
               -> kernels (CUDA C++ for sm_90a, loaded with ctypes)

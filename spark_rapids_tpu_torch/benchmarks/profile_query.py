@@ -1,0 +1,105 @@
+"""Where a query's time goes on the card: one warm run of TPCx-BB q26 or
+TPC-H q14 or q22 under ``torch.profiler`` (device time by kernel name,
+the run's wall time and the device's busy share of it), then one under
+``cProfile`` (host time by Python function; cProfile slows Python calls,
+not native work, so its shares only point at candidates).
+
+    python -m spark_rapids_tpu_torch.benchmarks.profile_query \\
+        [--query q26|q14|q22] [--sf 10]
+
+Prints one JSON line per query. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import cProfile
+import json
+import pstats
+import subprocess
+import time
+
+
+def _plan_fn(query: str, sf: float):
+    from spark_rapids_tpu_torch.benchmarks import datagen, tpcds, tpch, \
+        tpcxbb
+
+    if query == "q26":
+        ss, item = tpcds.gen_store_sales(sf), tpcds.gen_item(sf)
+        return lambda: tpcxbb.q26(ss, item)
+    if query == "q14":
+        li, part = datagen.gen_lineitem(sf), datagen.gen_part(sf)
+        return lambda: tpch.q14(li, part)
+    cust, orders = datagen.gen_customer(sf), datagen.gen_orders(sf)
+    return lambda: tpch.q22(cust, orders)
+
+
+def profile(query: str, sf: float, top: int) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from spark_rapids_tpu_torch.execs.base import collect
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+
+    plan_fn = _plan_fn(query, sf)
+
+    def run():
+        collect(apply_overrides(plan_fn()))
+        torch.cuda.synchronize()
+
+    run()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    rows = []
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:  # kernels and copies only
+            continue
+        busy_us += e.self_device_time_total
+        rows.append((e.self_device_time_total, e.key, e.count))
+    rows.sort(reverse=True)
+    host = cProfile.Profile()
+    host.runcall(run)
+    stats = pstats.Stats(host).stats
+    funcs = sorted(((tt, "/".join(fn[0].split("/")[-2:]) +
+                     f":{fn[1]}:{fn[2]}", nc)
+                    for fn, (_cc, nc, tt, _ct, _callers) in stats.items()),
+                   reverse=True)
+    return {"query": query, "sf": sf, "wall_s": wall,
+            "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall if wall else None,
+            "top_device_ms": [{"name": k[:80], "calls": c, "ms": us / 1e3}
+                              for us, k, c in rows[:top]],
+            "top_host_self_ms": [{"function": f[:80], "calls": c,
+                                  "ms": tt * 1e3}
+                                 for tt, f, c in funcs[:top]]}
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--query", choices=("q26", "q14", "q22"),
+                    action="append")
+    ap.add_argument("--sf", type=float, default=10.0)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_query needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    for query in args.query or ["q26", "q14", "q22"]:
+        rec = profile(query, args.sf, args.top)
+        rec["card"] = card
+        print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -4,7 +4,8 @@ Every column of a batch has the batch's exact row count; the count is a
 host int. :func:`batch_from_numpy` carries data across from the
 reference: the arrays of an ``InMemorySource`` dict, or those behind a
 reference ``ColumnarBatch`` (cut to its ``num_rows``), become the port's
-batch on any device.
+batch on any device. Concatenation, which unifies string dictionaries,
+is ``ops/concat.py``.
 """
 from __future__ import annotations
 
@@ -107,28 +108,3 @@ def batch_from_numpy(columns: Sequence[np.ndarray],
         else:
             cols.append(Column.from_numpy(vals, t, valid, device))
     return ColumnarBatch(cols, n)
-
-
-def concat_batches(batches: List[ColumnarBatch]) -> ColumnarBatch:
-    """Row-wise concatenation. String columns must share a dictionary
-    (dictionary unification is not ported)."""
-    if len(batches) == 1:
-        return batches[0]
-    cols: List[Column] = []
-    for i, first in enumerate(batches[0].columns):
-        parts = [b.columns[i] for b in batches]
-        if isinstance(first, StringColumn):
-            for p in parts[1:]:
-                if not np.array_equal(p.dictionary, first.dictionary):
-                    raise NotImplementedError(
-                        "concat of string columns with different "
-                        "dictionaries")
-        data = torch.cat([p.data for p in parts])
-        validity = None
-        if any(p.validity is not None for p in parts):
-            validity = torch.cat([
-                p.validity if p.validity is not None else
-                torch.ones(p.num_rows, dtype=torch.bool, device=p.device)
-                for p in parts])
-        cols.append(first._like(data, validity))
-    return ColumnarBatch(cols, sum(b.num_rows for b in batches))

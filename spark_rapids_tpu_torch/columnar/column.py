@@ -9,7 +9,7 @@ the host, so code order is string order.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,13 +100,16 @@ class StringColumn(Column):
     """int32 codes into ``dictionary``, a host object array of unique
     strings sorted ascending."""
 
-    __slots__ = ("dictionary", "_dict_hashes")
+    __slots__ = ("dictionary", "_dict_hashes", "_char_table")
 
     def __init__(self, codes: torch.Tensor, dictionary: np.ndarray,
                  validity: Optional[torch.Tensor] = None):
         super().__init__(dt.STRING, codes, validity)
         self.dictionary = dictionary
         self._dict_hashes = None  # ops.hashing.dict_hashes cache
+        # kernels.strings.char_table cache: one slot shared with every
+        # column _like derives, so a build side's gathers share one table
+        self._char_table = [None]
 
     @staticmethod
     def from_strings(values: Sequence[Optional[str]],
@@ -133,6 +136,7 @@ class StringColumn(Column):
     def _like(self, data, validity) -> "StringColumn":
         out = StringColumn(data, self.dictionary, validity)
         out._dict_hashes = self._dict_hashes
+        out._char_table = self._char_table
         return out
 
     def to_numpy(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -146,3 +150,30 @@ class StringColumn(Column):
         if validity is not None:
             out[~validity] = None
         return out, validity
+
+
+def unify_dictionaries(cols: List[StringColumn]) -> List[StringColumn]:
+    """The columns re-encoded onto one shared sorted dictionary (the
+    reference's ``unify_dictionaries``): the merge of the dictionaries
+    runs on the host, the remap of the codes is a gather on the device.
+    A column whose dictionary already is the merged one keeps its codes."""
+    if not cols:
+        return cols
+    merged = np.unique(np.concatenate([
+        c.dictionary.astype(str) if len(c.dictionary) else
+        np.array([], dtype=str) for c in cols]))
+    merged_obj = merged.astype(object)
+    out = []
+    for c in cols:
+        if len(c.dictionary) == len(merged) and (
+                len(merged) == 0 or bool((c.dictionary == merged_obj).all())):
+            out.append(StringColumn(c.data, merged_obj, c.validity))
+            continue
+        if len(c.dictionary):
+            remap = np.searchsorted(merged, c.dictionary.astype(str))
+        else:
+            remap = np.zeros(1, dtype=np.int64)  # every row is null
+        remap_t = torch.from_numpy(remap.astype(np.int32)).to(c.device)
+        codes = remap_t[c.data.to(torch.int64).clamp(0, len(remap) - 1)]
+        out.append(StringColumn(codes, merged_obj, c.validity))
+    return out

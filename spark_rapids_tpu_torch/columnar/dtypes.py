@@ -70,6 +70,20 @@ def from_numpy(np_dtype) -> DType:
     raise TypeError(f"cannot infer a DType from numpy dtype {d}")
 
 
+def common_type(a: DType, b: DType) -> DType:
+    """Numeric promotion for binary expressions (the reference's
+    ``common_type``: the wider of the two, int64 with float32 widening
+    to float64)."""
+    if a is b:
+        return a
+    order = {INT8: 0, INT16: 1, INT32: 2, INT64: 3, FLOAT32: 4, FLOAT64: 5}
+    if a in order and b in order:
+        if {a, b} == {INT64, FLOAT32}:
+            return FLOAT64
+        return a if order[a] >= order[b] else b
+    raise TypeError(f"no common type for {a} and {b}")
+
+
 def null_sentinel(t: DType):
     """Value stored in null slots (kernels consult validity; the sentinel
     only keeps gathers in bounds and values tame)."""

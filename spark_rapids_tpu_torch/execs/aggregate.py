@@ -3,19 +3,27 @@ spark_rapids_tpu/execs/aggregate.py) in the reference's "complete" mode:
 each batch is projected to (keys, aggregate inputs) and aggregated with
 the update ops; the result is concatenated with the running partials and
 re-aggregated with the merge ops; after the last batch the final
-projection evaluates each aggregate over its partials."""
+projection evaluates each aggregate over its partials.
+
+With no grouping keys every step is a whole-batch reduction to one row,
+and an empty input still yields one row: count 0, every other aggregate
+null (the reference's ``_empty_global_partials``)."""
 from __future__ import annotations
 
 from typing import Iterator, List
 
+import torch
+
 from spark_rapids_tpu_torch.columnar import dtypes as dt
-from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch, Schema,
-                                                   concat_batches)
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
+from spark_rapids_tpu_torch.columnar.column import Column
 from spark_rapids_tpu_torch.execs.base import TorchExec
 from spark_rapids_tpu_torch.execs.basic import project
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Expression)
-from spark_rapids_tpu_torch.ops.groupby import AggSpec, groupby_aggregate
+from spark_rapids_tpu_torch.ops.concat import concat_batches
+from spark_rapids_tpu_torch.ops.groupby import (AggSpec, groupby_aggregate,
+                                                reduce_aggregate)
 from spark_rapids_tpu_torch.plan.nodes import AggCall
 
 
@@ -23,9 +31,6 @@ class HashAggregateExec(TorchExec):
     def __init__(self, grouping: List[Expression], aggs: List[AggCall],
                  child: TorchExec, schema: Schema, device):
         super().__init__([child], schema)
-        if not grouping:
-            raise NotImplementedError(
-                "aggregates without grouping keys are not ported")
         self.device = device
         nkeys = len(grouping)
         # input projection: keys, then each aggregate's input once
@@ -58,8 +63,20 @@ class HashAggregateExec(TorchExec):
         self.nkeys = nkeys
 
     def _aggregate(self, batch, specs, types) -> ColumnarBatch:
+        if not self.nkeys:
+            return reduce_aggregate(batch, specs, types, self.device)[0]
         return groupby_aggregate(batch, list(range(self.nkeys)), specs,
                                  types)[0]
+
+    def _empty_global_partials(self) -> ColumnarBatch:
+        """One row of partials over zero rows: counts 0, the rest null."""
+        cols = []
+        for spec, t in zip(self.update_specs, self.merge_types):
+            data = torch.zeros(1, dtype=t.torch_dtype, device=self.device)
+            valid = None if spec.op in ("count", "count_star") else \
+                torch.zeros(1, dtype=torch.bool, device=self.device)
+            cols.append(Column(t, data, valid))
+        return ColumnarBatch(cols, 1)
 
     def execute(self) -> Iterator[ColumnarBatch]:
         running = None
@@ -72,6 +89,8 @@ class HashAggregateExec(TorchExec):
                 concat_batches([running, part]), self.merge_specs,
                 self.merge_types)
         if running is None:
-            yield ColumnarBatch.empty(self.schema, self.device)
-            return
+            if self.nkeys:
+                yield ColumnarBatch.empty(self.schema, self.device)
+                return
+            running = self._empty_global_partials()
         yield project(running, self.final_exprs, self.device)

@@ -1,24 +1,29 @@
 """Broadcast hash join exec (the counterpart of
 spark_rapids_tpu/execs/joins.py): the build child is drained and
 prepared once (hash, sort, probe table), and every stream batch probes
-it."""
+it. Inner joins emit stream then build columns; left anti joins emit the
+stream rows without a match, stream columns only."""
 from __future__ import annotations
 
 from typing import Iterator, List
 
-from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch, Schema,
-                                                   concat_batches)
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.execs.base import TorchExec
+from spark_rapids_tpu_torch.ops.concat import concat_batches
 from spark_rapids_tpu_torch.ops.join import equi_join, prepare_build
+
+#: plan join kind -> ops.join join type (the reference's ``_KIND_MAP``)
+KIND_MAP = {"inner": "inner", "left_anti": "leftanti"}
 
 
 class BroadcastHashJoinExec(TorchExec):
-    """Inner equi-join; children[0] streams, children[1] builds."""
+    """Equi-join; children[0] streams, children[1] builds."""
 
-    def __init__(self, left: TorchExec, right: TorchExec,
+    def __init__(self, kind: str, left: TorchExec, right: TorchExec,
                  left_keys: List[int], right_keys: List[int],
                  schema: Schema, device):
         super().__init__([left, right], schema)
+        self.join_type = KIND_MAP[kind]
         self.left_keys = left_keys
         self.right_keys = right_keys
         self.device = device
@@ -37,4 +42,5 @@ class BroadcastHashJoinExec(TorchExec):
                 continue
             saw = True
             yield equi_join(b, build, self.left_keys, self.right_keys,
-                            left_types, right_types, prepared=prepared)[0]
+                            left_types, right_types, self.join_type,
+                            prepared=prepared)[0]

@@ -1,12 +1,13 @@
 """Sort exec, in-core (the counterpart of spark_rapids_tpu/execs/sort.py):
-the whole input is one batch sorted once."""
+the whole input is one batch sorted once. A string key sorts by its codes
+after the concatenation has put every batch on one sorted dictionary."""
 from __future__ import annotations
 
 from typing import Iterator, List
 
-from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
-                                                   concat_batches)
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.execs.base import TorchExec
+from spark_rapids_tpu_torch.ops.concat import concat_batches
 from spark_rapids_tpu_torch.ops.sort import sort_batch
 from spark_rapids_tpu_torch.ops.sortkeys import SortKeySpec
 

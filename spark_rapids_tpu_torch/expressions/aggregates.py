@@ -71,3 +71,29 @@ class Count(AggregateFunction):
 
     def merge_ops(self):
         return ["sum"]
+
+
+class Average(AggregateFunction):
+    """avg: sum and count partials, final sum / count (null over no
+    valid rows: the count is 0 and Divide gives null)."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return dt.FLOAT64
+
+    def partial_types(self):
+        return [dt.FLOAT64, dt.INT64]
+
+    def update_ops(self):
+        return ["sum", "count"]
+
+    def merge_ops(self):
+        return ["sum", "sum"]
+
+    def evaluate(self, partials: List[Expression]) -> Expression:
+        from spark_rapids_tpu_torch.expressions.arithmetic import Divide
+
+        return Divide(partials[0], partials[1])

@@ -1,11 +1,12 @@
 """Predicates and boolean logic (the counterpart of
-spark_rapids_tpu/expressions/predicates.py): the comparisons q26 uses,
-AND/OR with Spark's three-valued logic, NOT, IS NOT NULL and IN.
+spark_rapids_tpu/expressions/predicates.py): the comparisons, AND/OR
+with Spark's three-valued logic, NOT, IS NOT NULL and IN.
 
 A string column compares with a string literal in code space: the
 literal's position in the column's sorted dictionary, on a doubled axis
 (code * 2, or pos * 2 - 1 when the literal falls between entries), so
 equality and order both hold without touching the strings on the device.
+Two string columns compare after their dictionaries are unified.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
-from spark_rapids_tpu_torch.columnar.column import Scalar
+from spark_rapids_tpu_torch.columnar.column import (Scalar, StringColumn,
+                                                    unify_dictionaries)
 from spark_rapids_tpu_torch.expressions.base import (
     ColV, EvalContext, EvalValue, Expression, LeafExpression, Literal,
     and_validity, broadcast, operand, value_validity)
@@ -33,12 +35,14 @@ class _Comparison(Expression):
 
     @staticmethod
     def _string_codes(a: EvalValue, b: EvalValue):
-        """A string column against a string literal, in doubled code
-        space. Column-to-column string comparison needs dictionary
-        unification, which is not ported."""
-        if not (isinstance(a, Scalar) ^ isinstance(b, Scalar)):
-            raise NotImplementedError(
-                "string comparison between two columns is not ported")
+        """A string column against a string literal in doubled code
+        space, or two string columns on one unified dictionary."""
+        if not isinstance(a, Scalar) and not isinstance(b, Scalar):
+            ua, ub = unify_dictionaries([
+                StringColumn(a.data, a.scol.dictionary, a.validity),
+                StringColumn(b.data, b.scol.dictionary, b.validity)])
+            return (ColV(dt.STRING, ua.data, ua.validity, ua),
+                    ColV(dt.STRING, ub.data, ub.validity, ub))
         scalar, colv = (a, b) if isinstance(a, Scalar) else (b, a)
         dic = colv.scol.dictionary
         keys = dic.astype(str) if len(dic) else np.array([], dtype=str)
@@ -70,6 +74,18 @@ class EqualTo(_Comparison):
 
 class GreaterThan(_Comparison):
     op = staticmethod(lambda a, b: a > b)
+
+
+class GreaterThanOrEqual(_Comparison):
+    op = staticmethod(lambda a, b: a >= b)
+
+
+class LessThan(_Comparison):
+    op = staticmethod(lambda a, b: a < b)
+
+
+class LessThanOrEqual(_Comparison):
+    op = staticmethod(lambda a, b: a <= b)
 
 
 class And(Expression):

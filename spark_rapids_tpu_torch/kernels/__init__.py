@@ -27,14 +27,14 @@ from typing import Dict, List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("sort", "join")
+SOURCES = ("sort", "join", "strings")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"partition_order": 0, "radix_order": 0,
-                            "probe": 0}
+                            "probe": 0, "match_table": 0, "substring": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -104,6 +104,7 @@ def load(stem: str) -> ctypes.CDLL:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 def _declare(stem: str, lib: ctypes.CDLL) -> None:
@@ -121,6 +122,13 @@ def _declare(stem: str, lib: ctypes.CDLL) -> None:
     elif stem == "join":
         lib.srt_k3_probe.argtypes = [_P, _P, _I, _P, _I, _P, _P, _P]
         lib.srt_k3_probe.restype = _I
+    elif stem == "strings":
+        lib.srt_k4_match_table.argtypes = [_P, _P, _I, _I, _P, _I, _I, _P,
+                                           _P]
+        lib.srt_k4_match_table.restype = _I
+        lib.srt_k6_substring.argtypes = [_P, _P, _I, _I, _LL, _LL, _I, _P,
+                                         _P, _P]
+        lib.srt_k6_substring.restype = _I
 
 
 def check(err: int, what: str) -> None:

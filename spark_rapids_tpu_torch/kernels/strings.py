@@ -1,0 +1,264 @@
+"""Dictionary-string kernels: the char-table encoder, K4 (match table) and
+K6 (substring), their wrappers and plain versions, and the routes the
+string expressions take through them.
+
+A string column is int32 codes into a sorted host dictionary, so every
+string function splits into work per dictionary entry and a gather by
+code. The per-entry work runs on the card over the dictionary's padded
+char table (``encode_dictionary``: uint8[n, L] with L a power of two up
+to 512, plus byte lengths), encoded once per dictionary and cached on the
+column.
+
+``match_table`` replaces spark_rapids_tpu/native/kernels/strings.py
+``_match_table``: one bool per entry for starts / ends / contains. It is
+bound by the table's bytes; ``csrc/strings.cu`` runs one thread per entry
+with the needle in shared memory, and, unlike the TPU kernel, builds no
+window tensor, so ``contains`` has no size budget.
+
+``substring_table`` replaces the kernel of ``substring_colv`` (same
+file): Spark ``substring(pos, len)`` over an ASCII table, one thread per
+output byte, bound by the table's bytes in and out. The host then
+rebuilds the sorted dictionary of the slices and remaps the codes.
+
+Routes the reference takes by content stay: an entry longer than 512
+bytes gives no table, ``substring`` needs an ASCII dictionary (it counts
+characters), and an empty dictionary has no table; the expression then
+runs its host transform. Each wrapper launches its CUDA kernel for CUDA
+tensors, or raises, and runs its plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import DEFAULT_DEVICE
+from spark_rapids_tpu_torch import kernels as nk
+
+#: longest entry, in bytes, the char table holds (the reference's ceiling)
+MAX_ENTRY_LEN = 512
+KINDS = {"starts": 0, "ends": 1, "contains": 2}
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def encode_dictionary(dic: np.ndarray
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray, bool]]:
+    """(chars uint8[n, L], lens int32[n], ascii_only) for a dictionary, or
+    None when an entry exceeds ``MAX_ENTRY_LEN`` bytes: the reference's
+    ``encode_dictionary``, scattered in one vectorized step instead of a
+    loop per entry."""
+    n = len(dic)
+    encoded = [str(s).encode("utf-8") for s in dic]
+    lens = np.fromiter(map(len, encoded), dtype=np.int64, count=n)
+    maxlen = int(lens.max()) if n else 0
+    if maxlen > MAX_ENTRY_LEN:
+        return None
+    L = _pow2(max(maxlen, 1))
+    chars = np.zeros((n, L), dtype=np.uint8)
+    flat = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+    starts = np.cumsum(lens) - lens
+    chars[np.repeat(np.arange(n), lens),
+          np.arange(flat.size) - np.repeat(starts, lens)] = flat
+    ascii_only = maxlen == 0 or int(flat.max()) < 0x80
+    return chars, lens.astype(np.int32), ascii_only
+
+
+class CharTable(NamedTuple):
+    chars: torch.Tensor  # uint8[n, L]
+    lens: torch.Tensor   # int32[n]
+    ascii_only: bool
+
+
+def table_from_reference(chars: np.ndarray, lens: np.ndarray,
+                         device=DEFAULT_DEVICE) -> CharTable:
+    """The port's char table from a reference ``encode_dictionary``
+    result (``chars`` uint8[n, L], ``lens`` int32[n])."""
+    chars = np.ascontiguousarray(chars, dtype=np.uint8)
+    ascii_only = chars.size == 0 or int(chars.max()) < 0x80
+    return CharTable(torch.from_numpy(chars).to(device),
+                     torch.from_numpy(np.asarray(lens, np.int32).copy())
+                     .to(device), ascii_only)
+
+
+def char_table(scol) -> Optional[CharTable]:
+    """The char table of a StringColumn's dictionary on the column's
+    device, encoded once per dictionary; None for an empty dictionary or
+    one the encoder refuses."""
+    cached = scol._char_table[0]
+    if cached is not None and cached[0] is scol.dictionary:
+        return cached[1]
+    table = None
+    if len(scol.dictionary):
+        enc = encode_dictionary(scol.dictionary)
+        if enc is not None:
+            dev = scol.device
+            table = CharTable(torch.from_numpy(enc[0]).to(dev),
+                              torch.from_numpy(enc[1]).to(dev), enc[2])
+    scol._char_table[0] = (scol.dictionary, table)
+    return table
+
+
+# -- K4 ----------------------------------------------------------------------
+
+
+def match_table_plain(chars: torch.Tensor, lens: torch.Tensor, kind: str,
+                      needle: bytes) -> torch.Tensor:
+    """The TPU kernel's arithmetic, for 1 <= m <= L: starts compares the
+    first m bytes, ends the window at len - m, contains every window p
+    with p + m <= len (one window at a time, so no (n, P, m) tensor)."""
+    n, L = chars.shape
+    m = len(needle)
+    nd = torch.tensor(list(needle), dtype=torch.uint8, device=chars.device)
+    lv = lens.to(torch.int64)
+    if kind == "starts":
+        return (chars[:, :m] == nd).all(1) & (lv >= m)
+    if kind == "ends":
+        cols = lv[:, None] - m + torch.arange(m, device=chars.device)
+        w = torch.gather(chars, 1, cols.clamp(0, L - 1))
+        return (w == nd).all(1) & (lv >= m)
+    hit = torch.zeros(n, dtype=torch.bool, device=chars.device)
+    for p in range(L - m + 1):
+        hit |= (chars[:, p:p + m] == nd).all(1) & (lv >= p + m)
+    return hit
+
+
+def match_table(chars: torch.Tensor, lens: torch.Tensor, kind: str,
+                needle: bytes) -> torch.Tensor:
+    """bool[n]: does each entry start with / end with / contain
+    ``needle`` (bytes; exact on UTF-8 for any input)."""
+    if kind not in KINDS:
+        raise ValueError(f"match_table: unknown kind {kind!r}")
+    n, L = chars.shape
+    m = len(needle)
+    if m > L:  # longer than every entry: nothing matches
+        return torch.zeros(n, dtype=torch.bool, device=chars.device)
+    if m == 0:  # '' is a prefix, suffix and substring of everything
+        return torch.ones(n, dtype=torch.bool, device=chars.device)
+    if not chars.is_cuda:
+        return match_table_plain(chars, lens, kind, needle)
+    chars, lens = chars.contiguous(), lens.contiguous()
+    nk.require_cuda("match_table", [chars, lens],
+                    [torch.uint8, torch.int32])
+    out = torch.empty(n, dtype=torch.bool, device=chars.device)
+    if n == 0:
+        return out
+    nd = torch.tensor(list(needle), dtype=torch.uint8, device=chars.device)
+    lib = nk.load("strings")
+    nk.check(lib.srt_k4_match_table(
+        chars.data_ptr(), lens.data_ptr(), n, L, nd.data_ptr(), m,
+        KINDS[kind], out.data_ptr(), nk.stream_handle(chars.device)),
+        "match_table")
+    nk.LAUNCHES["match_table"] += 1
+    return out
+
+
+# -- K6 ----------------------------------------------------------------------
+
+
+def substring_table_plain(chars: torch.Tensor, lens: torch.Tensor, pos: int,
+                          length: Optional[int]):
+    """The TPU kernel's arithmetic: the slice's clamped bounds per entry,
+    a gather along the row, zero padding past the new length."""
+    n, L = chars.shape
+    lv = lens.to(torch.int64)
+    if pos > 0:
+        start = torch.full_like(lv, pos - 1)
+    elif pos < 0:
+        start = lv + pos
+    else:
+        start = torch.zeros_like(lv)
+    end = lv if length is None else start + length
+    start_c = torch.minimum(start.clamp(min=0), lv)
+    end_c = torch.minimum(end, lv).clamp(min=0)
+    out_len = (end_c - start_c).clamp(min=0)
+    j = torch.arange(L, device=chars.device)
+    sliced = torch.gather(chars, 1, (start_c[:, None] + j).clamp(0, L - 1))
+    keep = j[None, :] < out_len[:, None]
+    return (torch.where(keep, sliced, torch.zeros_like(sliced)),
+            out_len.to(torch.int32))
+
+
+def substring_table(chars: torch.Tensor, lens: torch.Tensor, pos: int,
+                    length: Optional[int]):
+    """(chars uint8[n, L], lens int32[n]) of ``substring(entry, pos,
+    length)`` for every entry of an ASCII table (byte == character);
+    ``length`` None means to the end."""
+    if not chars.is_cuda:
+        return substring_table_plain(chars, lens, pos, length)
+    chars, lens = chars.contiguous(), lens.contiguous()
+    nk.require_cuda("substring", [chars, lens], [torch.uint8, torch.int32])
+    n, L = chars.shape
+    out = torch.empty_like(chars)
+    out_lens = torch.empty_like(lens)
+    if n == 0:
+        return out, out_lens
+    lib = nk.load("strings")
+    nk.check(lib.srt_k6_substring(
+        chars.data_ptr(), lens.data_ptr(), n, L, int(pos),
+        0 if length is None else int(length), int(length is not None),
+        out.data_ptr(), out_lens.data_ptr(),
+        nk.stream_handle(chars.device)), "substring")
+    nk.LAUNCHES["substring"] += 1
+    return out, out_lens
+
+
+def rebuild_dictionary(out_chars: torch.Tensor
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """(sorted dictionary of the sliced entries, code remap int32): the
+    reference's ``np.unique(transformed.astype(str))``. The slices are
+    ASCII and zero-padded, so the rows viewed as fixed-width bytes are
+    the entries (trailing NULs dropped, as ``astype(str)`` drops them)."""
+    oc = out_chars.cpu().numpy()
+    n, L = oc.shape
+    as_bytes = np.ascontiguousarray(oc).view(f"S{L}").reshape(n)
+    new_dict, inv = np.unique(as_bytes, return_inverse=True)
+    return new_dict.astype(f"U{L}").astype(object), \
+        inv.reshape(n).astype(np.int32)
+
+
+# -- expression routes -------------------------------------------------------
+
+
+def gather_table(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Per-row values of a per-entry table (codes clipped into range,
+    as the reference's ``take(mode="clip")``)."""
+    return table[codes.to(torch.int64).clamp(0, table.shape[0] - 1)]
+
+
+def predicate_colv(v, kind: str, needle: str):
+    """The boolean ColV of a starts / ends / contains predicate over a
+    dictionary column through K4, or None when the column has no char
+    table (the caller runs its host transform)."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.expressions.base import ColV
+
+    table = None if v.scol is None else char_table(v.scol)
+    if table is None:
+        return None
+    hit = match_table(table.chars, table.lens, kind, needle.encode("utf-8"))
+    return ColV(dt.BOOLEAN, gather_table(hit, v.data), v.validity)
+
+
+def substring_colv(v, pos: int, length: Optional[int]):
+    """The string ColV of ``substring(v, pos, length)`` through K6 and
+    a host rebuild of the dictionary, or None when the column has no
+    char table or a non-ASCII one."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+    from spark_rapids_tpu_torch.expressions.base import ColV
+
+    table = None if v.scol is None else char_table(v.scol)
+    if table is None or not table.ascii_only:
+        return None
+    out_chars, _ = substring_table(table.chars, table.lens, pos, length)
+    new_dict, remap = rebuild_dictionary(out_chars)
+    codes = gather_table(torch.from_numpy(remap).to(v.data.device), v.data)
+    sc = StringColumn(codes, new_dict, v.validity)
+    return ColV(dt.STRING, codes, v.validity, sc)

@@ -19,7 +19,9 @@ sums and counts are exact prefix-sum differences (exact under wrap).
 
 Rows masked out by ``live_mask`` (a fused filter) never reach a group.
 Only the ops the ported paths use are here: sum, count and count_star,
-which is also the merge set of Count and Sum. Others raise.
+which is also the merge set of Count, Sum and Average. Others raise.
+Grand aggregates (no keys) are whole-batch reductions
+(:func:`reduce_aggregate`), with no sort.
 """
 from __future__ import annotations
 
@@ -97,6 +99,41 @@ def groupby_aggregate(batch: ColumnarBatch, key_ordinals: List[int],
         out_cols.append(Column(rtype, agg_d[i], agg_v[i]))
         out_types.append(rtype)
     return ColumnarBatch(out_cols, num_groups), out_types
+
+
+def reduce_aggregate(batch: ColumnarBatch, aggs: List[AggSpec],
+                     dtypes: List[dt.DType], device
+                     ) -> Tuple[ColumnarBatch, List[dt.DType]]:
+    """Whole-batch reduction (no keys): a 1-row batch of the aggregates
+    (the reference's ``reduce_aggregate``). A sum over no valid rows is
+    null; the results stay on the device."""
+    n = batch.num_rows
+    out_cols: List[Column] = []
+    out_types: List[dt.DType] = []
+    for spec in aggs:
+        if spec.op not in AGG_OPS:
+            raise NotImplementedError(
+                f"aggregate op {spec.op!r} is not ported")
+        rtype = agg_result_dtype(spec, dtypes)
+        validity = None
+        if spec.op == "count_star":
+            data = torch.full((1,), n, dtype=torch.int64, device=device)
+        else:
+            c = batch.columns[spec.ordinal]
+            n_valid = torch.full((1,), n, dtype=torch.int64, device=device) \
+                if c.validity is None else \
+                c.validity.to(torch.int64).sum().reshape(1)
+            if spec.op == "count":
+                data = n_valid
+            else:
+                x = c.data.to(rtype.torch_dtype)
+                if c.validity is not None:
+                    x = torch.where(c.validity, x, torch.zeros_like(x))
+                data = x.sum().reshape(1)
+                validity = n_valid > 0
+        out_cols.append(Column(rtype, data, validity))
+        out_types.append(rtype)
+    return ColumnarBatch(out_cols, 1), out_types
 
 
 def _pack_plan(dtypes, key_ordinals, key_ranges):

@@ -1,15 +1,17 @@
-"""Inner equi-join: hash-sorted build, bucket probe, exact verification
-(the counterpart of spark_rapids_tpu/ops/join.py).
+"""Inner and left-anti equi-joins: hash-sorted build, bucket probe, exact
+verification (the counterpart of spark_rapids_tpu/ops/join.py).
 
   build:  h_b = hash64(keys); sort build rows by h_b; bucket table
   probe:  h_p = hash64(keys); (lo, counts) per probe row  (kernel K3)
   expand: pair k -> (probe row, build row lo + offset within the run)
   verify: exact key equality per pair kills hash collisions
   emit:   matched pairs compacted in order              (kernel K1)
+          (left anti: the stream rows with no matched pair, in order)
 
 Null keys never match: build and probe nulls take disjoint sentinel
-hashes. The build side is prepared once and probed by every stream batch.
-Only the inner join is ported; other kinds raise.
+hashes, and exact verification rejects a null key, so a left anti join
+keeps the stream rows with a null key. The build side is prepared once
+and probed by every stream batch. Other join kinds raise.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
 from spark_rapids_tpu_torch.kernels import join as kjoin
 from spark_rapids_tpu_torch.kernels import sort as ksort
 from spark_rapids_tpu_torch.ops import hashing, sortkeys
+from spark_rapids_tpu_torch.ops.filter import compact_batch
+
+JOIN_TYPES = ("inner", "leftanti")
 
 _BUILD_NULL = -0x6789ABCDEF01
 _PROBE_NULL = 0x13579BDF2468
@@ -128,10 +133,16 @@ def _expand_verify(lo, counts, total: int, key_pairs, key_types):
 
 
 def _emit(stream: ColumnarBatch, build: ColumnarBatch, stream_types,
-          build_types, pi, bi, match) -> Tuple[ColumnarBatch, List]:
-    """Matched pairs compacted in pair order (the partition kernel), then
-    stream columns gathered by probe row and build columns by build
-    row."""
+          build_types, pi, bi, match, join_type: str
+          ) -> Tuple[ColumnarBatch, List]:
+    """Inner: matched pairs compacted in pair order (the partition
+    kernel), then stream columns gathered by probe row and build columns
+    by build row. Left anti: the stream rows that no pair matched."""
+    if join_type == "leftanti":
+        matched = torch.zeros(stream.num_rows, dtype=torch.bool,
+                              device=match.device)
+        matched[pi[match]] = True
+        return compact_batch(stream, ~matched), list(stream_types)
     order = ksort.partition_order(match)
     n_match = int(match.sum())
     sel = order[:n_match]
@@ -148,10 +159,11 @@ def equi_join(stream: ColumnarBatch, build: ColumnarBatch,
               join_type: str = "inner",
               prepared: Optional[PreparedBuild] = None
               ) -> Tuple[ColumnarBatch, List[dt.DType]]:
-    """Join ``stream`` (probe side) against ``build``. Output: stream
-    columns then build columns, pairs in probe-row order and, within a
-    probe row, in hash-sorted build order."""
-    if join_type != "inner":
+    """Join ``stream`` (probe side) against ``build``. Inner output:
+    stream columns then build columns, pairs in probe-row order and,
+    within a probe row, in hash-sorted build order. Left anti output: the
+    unmatched stream rows, stream columns only."""
+    if join_type not in JOIN_TYPES:
         raise NotImplementedError(f"{join_type} join is not ported")
     commons = [common_key_type(stream_types[so], build_types[bo])
                for so, bo in zip(stream_keys, build_keys)]
@@ -176,4 +188,4 @@ def equi_join(stream: ColumnarBatch, build: ColumnarBatch,
         for so, bo, c in zip(stream_keys, build_keys, commons)]
     pi, bi, match = _expand_verify(lo, counts, total, key_pairs, commons)
     return _emit(stream, sorted_build, stream_types, build_types, pi, bi,
-                 match)
+                 match, join_type)

@@ -1,5 +1,5 @@
 """Plan nodes (the counterpart of spark_rapids_tpu/plan/nodes.py): the
-node types q26 uses. Expressions inside nodes are bound: their
+node types TPCx-BB q26 and TPC-H q14 and q22 use. Expressions inside nodes are bound: their
 ``BoundReference`` ordinals index the child's output schema.
 """
 from __future__ import annotations
@@ -121,7 +121,8 @@ class SortNode(PlanNode):
 
 
 class JoinNode(PlanNode):
-    """Equi-join on key ordinals; output is left columns then right."""
+    """Equi-join on key ordinals. An inner join outputs left columns then
+    right; a ``left_anti`` join the left columns only."""
 
     def __init__(self, kind: str, left: PlanNode, right: PlanNode,
                  left_keys: List[int], right_keys: List[int]):
@@ -134,6 +135,8 @@ class JoinNode(PlanNode):
 
     def output_schema(self) -> Schema:
         ls, rs = (c.output_schema() for c in self.children)
+        if self.kind == "left_anti":
+            return ls
         return Schema(ls.names + rs.names, ls.types + rs.types)
 
     def describe(self) -> str:

@@ -12,7 +12,8 @@ from spark_rapids_tpu_torch.execs.aggregate import HashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TorchExec
 from spark_rapids_tpu_torch.execs.basic import (FilterExec, ProjectExec,
                                                 ScanExec)
-from spark_rapids_tpu_torch.execs.joins import BroadcastHashJoinExec
+from spark_rapids_tpu_torch.execs.joins import (KIND_MAP,
+                                                BroadcastHashJoinExec)
 from spark_rapids_tpu_torch.execs.sort import SortExec
 from spark_rapids_tpu_torch.plan import nodes as pn
 
@@ -48,8 +49,9 @@ def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
     if isinstance(node, pn.SortNode):
         return SortExec(node.specs, kids[0], device)
     if isinstance(node, pn.JoinNode):
-        if node.kind != "inner":
+        if node.kind not in KIND_MAP:
             raise NotImplementedError(f"{node.kind} join is not ported")
-        return BroadcastHashJoinExec(kids[0], kids[1], node.left_keys,
-                                     node.right_keys, schema, device)
+        return BroadcastHashJoinExec(node.kind, kids[0], kids[1],
+                                     node.left_keys, node.right_keys,
+                                     schema, device)
     raise NotImplementedError(f"{node.describe()} is not ported")

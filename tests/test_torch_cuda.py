@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from spark_rapids_tpu_torch.kernels import join as kjoin  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as ksort  # noqa: E402
+from spark_rapids_tpu_torch.kernels import strings as kstr  # noqa: E402
 
 # sizes around the kernels' tiles (2048 rows for the partition kernel,
 # 4096 for a radix pass)
@@ -74,3 +75,43 @@ def test_probe_kernel_equals_plain(n):
     empty = kjoin.build_table(torch.zeros(0, dtype=torch.int64, device=dev))
     for a, b in zip(kjoin.probe(empty, h_p), kjoin.probe_plain(empty, h_p)):
         assert torch.equal(a, b)
+
+
+def _string_table(n, seed, dev, alphabet="ab-9 ", max_len=40):
+    """A seeded dictionary's char table (empty entries and, unless the
+    alphabet is ASCII, multi-byte UTF-8 included)."""
+    r = np.random.default_rng(seed)
+    words = sorted({"".join(alphabet[i] for i in
+                            r.integers(0, len(alphabet), k))
+                    for k in r.integers(0, max_len, n)} | {""})
+    chars, lens, _ = kstr.encode_dictionary(np.array(words, dtype=object))
+    return torch.from_numpy(chars).to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 257, 100_003))
+@pytest.mark.parametrize("kind", ["starts", "ends", "contains"])
+def test_match_table_kernel_equals_plain(n, kind):
+    dev = _card()
+    for alphabet in ("ab-9 ", "ab-éï日"):
+        chars, lens = _string_table(n, n, dev, alphabet)
+        for needle in ("a", "-9", "ab-", "é", "日", "a" * 30, "b" * 64, ""):
+            nb = needle.encode()
+            assert torch.equal(kstr.match_table(chars, lens, kind, nb),
+                               kstr.match_table_plain(chars, lens, kind, nb)
+                               if 0 < len(nb) <= chars.shape[1] else
+                               kstr.match_table(chars.cpu(), lens.cpu(),
+                                                kind, nb).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 257, 100_003))
+def test_substring_kernel_equals_plain(n):
+    dev = _card()
+    chars, lens = _string_table(n, n + 1, dev)
+    for pos in (-20, -3, 0, 1, 5, 40):
+        for length in (None, 0, -1, 2, 100):
+            got = kstr.substring_table(chars, lens, pos, length)
+            want = kstr.substring_table_plain(chars, lens, pos, length)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])

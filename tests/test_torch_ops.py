@@ -170,6 +170,27 @@ def test_equi_join_inner_matches_reference(sk, bk, n_build):
     _assert_same_rows(_port_rows(got), _reference_rows(want))
 
 
+@pytest.mark.parametrize("sk,bk", [([0], [0]), ([0, 1], [0, 1])],
+                         ids=["int64_nulls", "composite"])
+@pytest.mark.parametrize("n_build", [50, 0], ids=["build", "empty_build"])
+def test_equi_join_leftanti_matches_reference(sk, bk, n_build):
+    """The stream rows without a match, in stream order; a null stream
+    key never matches, so its row is kept."""
+    sd, st, sv = _join_arrays(90, 40, seed=3)
+    bd, bt, bv = _join_arrays(n_build, 40, seed=4)
+    rs, rst = _reference_batch(sd, st, sv, 90)
+    rb, rbt = _reference_batch(bd, bt, bv, n_build)
+    prep = rjoin.prepare_build(rb, bk, rbt, [rst[o] for o in sk])
+    want, wtypes = rjoin.equi_join(rs, rb, sk, bk, rst, rbt, "leftanti",
+                                   prepared=prep)
+    ts, tst = _port_batch(sd, st, sv)
+    tb, tbt = _port_batch(bd, bt, bv)
+    got, gtypes = tjoin.equi_join(ts, tb, sk, bk, tst, tbt, "leftanti")
+    assert [t.name for t in gtypes] == [t.name for t in wtypes]
+    _assert_same_rows(_port_rows(got), _reference_rows(want))
+    assert 0 < got.num_rows <= 90
+
+
 # -- group-by ----------------------------------------------------------------
 
 
@@ -240,9 +261,31 @@ def test_groupby_generic_int64_key_matches_reference():
 def test_import_leaves_reference_and_host_libraries_out():
     code = ("import sys, spark_rapids_tpu_torch.plan.overrides, "
             "spark_rapids_tpu_torch.benchmarks.tpcxbb, "
+            "spark_rapids_tpu_torch.benchmarks.tpcds, "
+            "spark_rapids_tpu_torch.benchmarks.tpch, "
             "spark_rapids_tpu_torch.benchmarks.q5lite; "
             "print(sorted(m for m in ('jax', 'spark_rapids_tpu', 'pandas', "
             "'pyarrow') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("n", [200, 0], ids=["rows", "empty"])
+def test_reduce_aggregate_matches_reference(n):
+    """Grand aggregates (no keys) over sum, count and count(*), with
+    nulls: one row; a sum over no valid rows is null."""
+    r = np.random.default_rng(5)
+    datas = [r.integers(-50, 50, n).astype(np.int64), r.standard_normal(n)]
+    valids = [r.random(n) > 0.3, np.zeros(n, bool)]
+    types = ["bigint", "double"]
+    aggs = [("sum", 0), ("count", 0), ("count_star", -1), ("sum", 1),
+            ("count", 1)]
+    rb, rtypes = _reference_batch(datas, types, valids, n)
+    want, _ = rgb.reduce_aggregate(rb, [rgb.AggSpec(o, i) for o, i in aggs],
+                                   rtypes)
+    tb, ttypes = _port_batch(datas, types, valids)
+    got, _ = tgb.reduce_aggregate(tb, [tgb.AggSpec(o, i) for o, i in aggs],
+                                  ttypes, "cpu")
+    assert got.num_rows == 1
+    _assert_same_rows(_port_rows(got), _reference_rows(want))

@@ -24,7 +24,8 @@ from spark_rapids_tpu.plan.overrides import (  # noqa: E402
     apply_overrides as rapply)
 
 from spark_rapids_tpu_torch import kernels as tnk  # noqa: E402
-from spark_rapids_tpu_torch.benchmarks import datagen, tpcxbb  # noqa: E402
+from spark_rapids_tpu_torch.benchmarks import tpcds as ttpcds  # noqa: E402
+from spark_rapids_tpu_torch.benchmarks import tpcxbb  # noqa: E402
 from spark_rapids_tpu_torch.execs.base import collect  # noqa: E402
 from spark_rapids_tpu_torch.plan.overrides import (  # noqa: E402
     apply_overrides)
@@ -37,7 +38,7 @@ _UNFUSED = {"rapids.tpu.sql.fusion.enabled": False,
 def test_generators_match_reference():
     ss_ref = tpcds.gen_store_sales(SF)
     it_ref = tpcds.gen_item(SF)
-    ss, it = datagen.gen_store_sales(SF), datagen.gen_item(SF)
+    ss, it = ttpcds.gen_store_sales(SF), ttpcds.gen_item(SF)
     for name in tpcxbb.Q26_SS_COLUMNS:
         np.testing.assert_array_equal(ss[name],
                                       ss_ref.column(name).to_numpy())
@@ -77,7 +78,7 @@ def test_q26_matches_reference_engine(reference_q26, conf, batch_rows):
     want = reference_q26[conf]
     tconf = {} if batch_rows is None else \
         {"rapids.tpu.sql.reader.batchSizeRows": batch_rows}
-    ss, it = datagen.gen_store_sales(SF), datagen.gen_item(SF)
+    ss, it = ttpcds.gen_store_sales(SF), ttpcds.gen_item(SF)
     tnk.reset_launches()
     got = collect(apply_overrides(tpcxbb.q26(ss, it), tconf, device="cpu"))
     assert list(got) == list(want.columns)
@@ -90,7 +91,7 @@ def test_q26_matches_reference_engine(reference_q26, conf, batch_rows):
 
 
 def test_q26_matches_numpy_oracle():
-    ss, it = datagen.gen_store_sales(0.02), datagen.gen_item(0.02)
+    ss, it = ttpcds.gen_store_sales(0.02), ttpcds.gen_item(0.02)
     got = collect(apply_overrides(tpcxbb.q26(ss, it), device="cpu"))
     want = tpcxbb.q26_numpy(ss, it)
     for name, col in want.items():
