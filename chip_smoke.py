@@ -17,7 +17,10 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    28.8M int64 keys; TPC-H sf 10: the match table over part's p_type
    dictionary and the sf-10 c_phone dictionary, and over a 1M-entry
    table past the reference's 64 MiB window budget; substring over the
-   c_phone dictionary and over a table of pos / length edges). Results
+   c_phone dictionary and over a table of pos / length edges; TPC-DS q91:
+   the LIKE table over household_demographics' hd_buy_potential, then
+   over the sf-10 c_phone dictionary and the 1M-entry table with the
+   reference's test patterns and patterns past its budget). Results
    must be equal; times come from CUDA events over warmed repeated
    launches, beside the bytes bound at 3.35 TB/s and, where one exists,
    one PyTorch library call computing the same function;
@@ -33,7 +36,12 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    and counts exact and balances within 1e-9 relative of a numpy
    oracle, with K6, K3, K2 and K1 launched during the query, and the
    substring step split into kernel time and host dictionary rebuild;
-8. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+8. TPC-DS q91 at sf 10 (catalog_returns 1.2M rows sampled from 14.4M
+   catalog_sales, customer 1M, customer_address 500k) through the SQL
+   front end (Session.create_temp_view -> sql -> collect), group keys
+   exact and sums within 1e-9 relative of a numpy oracle, with K5, K3
+   and K1 launched during the query;
+9. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Each query phase sets the launch counts to 0 just before its timed run
@@ -60,7 +68,12 @@ SEED_Q5 = 7
 PATH_KERNELS = {"q26": ("partition_order", "radix_order", "probe"),
                 "q14": ("match_table", "probe", "partition_order"),
                 "q22": ("substring", "probe", "radix_order",
-                        "partition_order")}
+                        "partition_order"),
+                "q91": ("like_table", "probe", "partition_order")}
+KERNELS = ("partition_order", "radix_order", "probe", "match_table",
+           "like_table", "substring")
+# the reference's window budget (native/kernels/strings.py _WINDOW_BUDGET)
+WINDOW_BUDGET = 64 << 20
 
 
 def _smi() -> str:
@@ -293,8 +306,8 @@ def phase_string_kernels(dev, part, customer):
     needle = "dc-ba"
     if n * (L - len(needle) + 1) * len(needle) <= 64 << 20:
         raise AssertionError("the seeded table must exceed the budget")
-    k4_case("seeded", _to_dev(chars, dev), _to_dev(lens, dev),
-            "contains", needle)
+    seeded = (_to_dev(chars, dev), _to_dev(lens, dev))
+    k4_case("seeded", *seeded, "contains", needle)
     # q22: substring(c_phone, 1, 2), then the pos / length edges
     k6_case("c_phone", *phone, 1, 2)
     edge = (_to_dev(chars[:100_000, :32].copy(), dev),
@@ -314,7 +327,79 @@ def phase_string_kernels(dev, part, customer):
     recs = {"match_table": dict(k4[0]), "substring": dict(k6[0])}
     recs["match_table"]["cases"] = k4
     recs["substring"]["cases"] = [k6[0], summary]
-    return recs, phone
+    return recs, phone, seeded
+
+
+def _like_ops(lens, pattern, escape):
+    """Byte comparisons of LIKE over this data without early exits: m per
+    entry long enough for an anchored segment, m per window of a
+    searched one."""
+    import torch
+
+    from spark_rapids_tpu_torch.kernels import strings as kstr
+
+    lv = lens.to(torch.int64)
+    ops = 0
+    for mode, seg in kstr.like_segments(kstr.parse_like(pattern, escape)):
+        m = len(seg)
+        if mode == kstr.LIKE_SEARCH:
+            ops += int((lv - m + 1).clamp(min=0).sum()) * m
+        else:
+            ops += int((lv >= m).sum()) * m
+    return ops
+
+
+def phase_like_kernel(dev, hd, phone, seeded):
+    """K5 against its plain version: q91's hd_buy_potential table, the
+    sf-10 c_phone dictionary with the reference's test patterns and a
+    phone pattern, and the 1M x 64 table with multi-segment patterns at
+    and past the reference's window budget. Returns the q91 case's
+    record, with every case under ``cases``."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.kernels import strings as kstr
+
+    cases = []
+
+    def case(label, chars, lens, pattern, escape="\\", iters=50):
+        n, L = chars.shape
+        ascii_only = bool((chars < 0x80).all())
+        got = kstr.like_table(chars, lens, pattern, escape, ascii_only)
+        want = kstr.like_table_plain(chars, lens, pattern, escape)
+        segs = kstr.like_segments(kstr.parse_like(pattern, escape))
+        budget = max((n * (L - len(sg) + 1) * max(len(sg), 1)
+                      for _, sg in segs), default=0)
+        rec = _record(
+            "like_table", "spark_rapids_tpu_torch/kernels/csrc/strings.cu",
+            "spark_rapids_tpu/native/kernels/strings.py:149", [got], [want],
+            _time_ms(lambda: kstr.like_table(chars, lens, pattern, escape,
+                                             ascii_only), iters),
+            _time_ms(lambda: kstr.like_table_plain(chars, lens, pattern,
+                                                   escape), 3),
+            None, n * L + n * 4 + n, f"{label} like {pattern!r} [{n}, {L}]",
+            ops=_like_ops(lens, pattern, escape), show=False)
+        rec["matches"] = int(got.sum())
+        rec["past_window_budget"] = budget > WINDOW_BUDGET
+        print(json.dumps(rec))
+        cases.append(rec)
+        return rec
+
+    hd_dic = np.unique(hd["hd_buy_potential"].astype(str)).astype(object)
+    main = case("hd_buy_potential", *_string_table(hd_dic, dev), "unknown%")
+    if main["matches"] != 1:
+        raise AssertionError("'unknown%' must match one buy potential")
+    for pattern in ("%apple%", "a%b\\_c", "100\\%", "_pple", "%quick%fox",
+                    "2_-%-%"):
+        case("c_phone", *phone, pattern)
+    for pattern in ("%a%b%c%", "%ab%cd%-%"):
+        case("seeded", *seeded, pattern, iters=20)
+    if not cases[-1]["past_window_budget"]:
+        raise AssertionError("the last pattern must pass the budget")
+    torch.cuda.synchronize()
+    rec = dict(main)
+    rec["cases"] = cases
+    return rec
 
 
 def phase_q5lite(dev):
@@ -349,16 +434,18 @@ def phase_q5lite(dev):
     return rec
 
 
-def _run_query(name, dev, plan_fn, nk):
-    """One warm run, then a timed run with the launch counts set to 0
-    just before it and read just after. Returns (result, record)."""
-    import torch
-
+def _plan_runner(dev, plan_fn):
+    """A query run: the plan through apply_overrides -> collect."""
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
-    def run():
-        return collect(apply_overrides(plan_fn(), device=dev))
+    return lambda: collect(apply_overrides(plan_fn(), device=dev))
+
+
+def _run_query(name, run, nk):
+    """One warm run, then a timed run with the launch counts set to 0
+    just before it and read just after. Returns (result, record)."""
+    import torch
 
     run()  # warm: caching allocator, library handles, built kernels
     torch.cuda.synchronize()
@@ -393,7 +480,8 @@ def _check_columns(name, got, want):
 def phase_q26(dev, ss, item, want, nk):
     from spark_rapids_tpu_torch.benchmarks import tpcxbb
 
-    got, rec = _run_query("q26", dev, lambda: tpcxbb.q26(ss, item), nk)
+    got, rec = _run_query("q26", _plan_runner(dev, lambda: tpcxbb.q26(
+        ss, item)), nk)
     _check_columns("q26", got, want)
     rec.update(store_sales_rows=len(ss["ss_item_sk"]),
                item_rows=len(item["i_item_sk"]),
@@ -406,7 +494,8 @@ def phase_q14(dev, lineitem, part, nk):
     from spark_rapids_tpu_torch.benchmarks import tpch
 
     want = tpch.q14_numpy(lineitem, part)
-    got, rec = _run_query("q14", dev, lambda: tpch.q14(lineitem, part), nk)
+    got, rec = _run_query("q14", _plan_runner(dev, lambda: tpch.q14(
+        lineitem, part)), nk)
     _check_columns("q14", got, want)
     rec.update(lineitem_rows=len(lineitem["l_partkey"]),
                part_rows=len(part["p_partkey"]),
@@ -424,8 +513,8 @@ def phase_q22(dev, customer, orders, phone, nk):
     from spark_rapids_tpu_torch.kernels import strings as kstr
 
     want = tpch.q22_numpy(customer, orders)
-    got, rec = _run_query("q22", dev, lambda: tpch.q22(customer, orders),
-                          nk)
+    got, rec = _run_query("q22", _plan_runner(dev, lambda: tpch.q22(
+        customer, orders)), nk)
     _check_columns("q22", got, want)
     # the substring step on the c_phone dictionary, split: host encode of
     # the dictionary, the kernel, the host rebuild of the sliced one
@@ -448,6 +537,33 @@ def phase_q22(dev, customer, orders, phone, nk):
                substring_kernel_ms=kernel_ms,
                substring_host_rebuild_ms=rebuild_s * 1e3,
                c_phone_host_encode_ms=encode_s * 1e3, matches_oracle=True)
+    print(json.dumps(rec))
+    return rec
+
+
+def phase_q91(dev, tables, nk):
+    """q91 through the SQL front end at sf 10, against the numpy oracle."""
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    from spark_rapids_tpu_torch.plan.nodes import InMemorySource
+
+    want = tpcds.q91_numpy(tables)
+
+    def run():
+        s = Session(device=dev)
+        for name, cols in tables.items():
+            s.create_temp_view(name, InMemorySource(cols))
+        return s.sql(tpcds.Q91_SQL).collect()
+
+    got, rec = _run_query("q91", run, nk)
+    _check_columns("q91", got, want)
+    if not len(want["returns_loss"]):
+        raise AssertionError("q91 at sf 10 must return groups")
+    rec.update({f"{name}_rows": len(next(iter(cols.values())))
+                for name, cols in tables.items()})
+    rec.update(groups=len(want["returns_loss"]),
+               returns_loss=[float(x) for x in got["returns_loss"]],
+               matches_oracle=True)
     print(json.dumps(rec))
     return rec
 
@@ -488,18 +604,24 @@ def main() -> int:
         want = tpcxbb.q26_numpy(ss, item)
         lineitem, part = datagen.gen_lineitem(SF), datagen.gen_part(SF)
         customer, orders = datagen.gen_customer(SF), datagen.gen_orders(SF)
+        q91_tables = tpcds.q91_tables(SF)
         print(f"data: sf {SF}, {len(ss['ss_item_sk'])} sales, "
               f"{len(item['i_item_sk'])} items, {len(want['cid'])} q26 "
               f"rows; {len(lineitem['l_partkey'])} lineitem, "
               f"{len(part['p_partkey'])} part, "
               f"{len(customer['c_custkey'])} customer, "
-              f"{len(orders['o_custkey'])} orders; "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"{len(orders['o_custkey'])} orders; q91: "
+              f"{len(q91_tables['catalog_returns']['cr_net_loss'])} "
+              f"catalog_returns; {time.perf_counter() - t0:.1f} s")
         phase = "kernels"
         recs = phase_kernels(dev, ss, item, want["cid"])
         phase = "string kernels"
-        srecs, phone = phase_string_kernels(dev, part, customer)
+        srecs, phone, seeded = phase_string_kernels(dev, part, customer)
         recs.update(srecs)
+        phase = "like kernel"
+        recs["like_table"] = phase_like_kernel(
+            dev, q91_tables["household_demographics"], phone, seeded)
+        del seeded
         phase = "q5lite"
         phase_q5lite(dev)
         phase = "q26"
@@ -510,6 +632,9 @@ def main() -> int:
         del lineitem
         phase = "q22"
         runs["q22"] = phase_q22(dev, customer, orders, phone, nk)
+        del customer, orders
+        phase = "q91"
+        runs["q91"] = phase_q91(dev, q91_tables, nk)
     except Exception as e:  # report the failing phase, print no result
         import traceback
 
@@ -517,14 +642,12 @@ def main() -> int:
         print(f"FAIL in phase {phase}: {type(e).__name__}: {e}")
         return 1
     kernels = []
-    for key in ("partition_order", "radix_order", "probe", "match_table",
-                "substring"):
+    for key in KERNELS:
         r = recs[key]
         entry = {k: r[k] for k in ("name", "route", "source", "replaces",
                                    "equal", "max_abs_err", "bound_ms",
                                    "bound_by", "library_ms", "shape")}
-        by_path = {q: run["launches"][key] for q, run in runs.items()
-                   if key in PATH_KERNELS[q]}
+        by_path = {q: run["launches"][key] for q, run in runs.items()}
         entry.update(launches=sum(by_path.values()),
                      launches_by_path=by_path, ms=r["kernel_ms"],
                      plain_ms=r["plain_ms"])

@@ -1,11 +1,12 @@
-"""Where a query's time goes on the card: one warm run of TPCx-BB q26 or
-TPC-H q14 or q22 under ``torch.profiler`` (device time by kernel name,
+"""Where a query's time goes on the card: one warm run of TPCx-BB q26,
+TPC-H q14 or q22, or TPC-DS q91 (through ``Session.sql``) under
+``torch.profiler`` (device time by kernel name,
 the run's wall time and the device's busy share of it), then one under
 ``cProfile`` (host time by Python function; cProfile slows Python calls,
 not native work, so its shares only point at candidates).
 
     python -m spark_rapids_tpu_torch.benchmarks.profile_query \\
-        [--query q26|q14|q22] [--sf 10]
+        [--query q26|q14|q22|q91] [--sf 10]
 
 Prints one JSON line per query. Needs a CUDA device.
 """
@@ -29,8 +30,25 @@ def _plan_fn(query: str, sf: float):
     if query == "q14":
         li, part = datagen.gen_lineitem(sf), datagen.gen_part(sf)
         return lambda: tpch.q14(li, part)
+    if query == "q91":
+        return _q91_plan_fn(tpcds.q91_tables(sf))
     cust, orders = datagen.gen_customer(sf), datagen.gen_orders(sf)
     return lambda: tpch.q22(cust, orders)
+
+
+def _q91_plan_fn(tables):
+    """q91's plan as ``Session.sql`` builds it, over fresh registrations
+    of the in-memory tables on every call."""
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    from spark_rapids_tpu_torch.plan.nodes import InMemorySource
+
+    def plan():
+        s = Session()
+        for name, cols in tables.items():
+            s.create_temp_view(name, InMemorySource(cols))
+        return s.sql(tpcds.Q91_SQL)._plan
+    return plan
 
 
 def profile(query: str, sf: float, top: int) -> dict:
@@ -83,7 +101,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q26", "q14", "q22"),
+    ap.add_argument("--query", choices=("q26", "q14", "q22", "q91"),
                     action="append")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--top", type=int, default=15)
@@ -94,7 +112,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    for query in args.query or ["q26", "q14", "q22"]:
+    for query in args.query or ["q26", "q14", "q22", "q91"]:
         rec = profile(query, args.sf, args.top)
         rec["card"] = card
         print(json.dumps(rec))

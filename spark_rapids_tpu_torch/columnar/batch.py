@@ -30,6 +30,9 @@ class Schema:
         self.names = list(names)
         self.types = list(types)
 
+    def index_of(self, name: str) -> int:
+        return self.names.index(name)
+
     def __repr__(self) -> str:  # pragma: no cover
         return "Schema(" + ", ".join(
             f"{n}:{t}" for n, t in zip(self.names, self.types)) + ")"

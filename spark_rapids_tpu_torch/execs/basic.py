@@ -1,10 +1,11 @@
-"""Scan, filter and project execs (the counterpart of
+"""Scan, filter, project and limit execs (the counterpart of
 spark_rapids_tpu/execs/basic.py)."""
 from __future__ import annotations
 
 from typing import Iterator, List
 
 import numpy as np
+import torch
 
 from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch, Schema,
                                                    batch_from_numpy)
@@ -52,9 +53,37 @@ class FilterExec(TorchExec):
 
     def execute(self) -> Iterator[ColumnarBatch]:
         for b in self.children[0].execute():
-            ctx = EvalContext.from_batch(b, self.device)
-            v = broadcast(self.condition.eval(ctx), ctx)
-            yield compact_batch(b, v.data, v.validity)
+            yield filter_batch(b, self.condition, self.device)
+
+
+def filter_batch(batch: ColumnarBatch, condition: Expression, device
+                 ) -> ColumnarBatch:
+    """The rows of ``batch`` where ``condition`` is true (not null)."""
+    ctx = EvalContext.from_batch(batch, device)
+    v = broadcast(condition.eval(ctx), ctx)
+    return compact_batch(batch, v.data, v.validity)
+
+
+class LimitExec(TorchExec):
+    """The first ``n`` rows, in the child's order; the child is not run
+    past the batch that reaches ``n``."""
+
+    def __init__(self, n: int, child: TorchExec, device):
+        super().__init__([child], child.schema)
+        self.n = n
+        self.device = device
+
+    def execute(self) -> Iterator[ColumnarBatch]:
+        left = self.n
+        if left <= 0:
+            return
+        for b in self.children[0].execute():
+            if b.num_rows > left:
+                b = b.gather(torch.arange(left, device=self.device))
+            left -= b.num_rows
+            yield b
+            if left == 0:
+                return
 
 
 class ProjectExec(TorchExec):

@@ -1,18 +1,20 @@
 """String expressions (the counterpart of
 spark_rapids_tpu/expressions/strings.py): starts_with, ends_with,
-contains and substring.
+contains, like and substring.
 
 A string column is codes into a sorted host dictionary, so each function
 is work per dictionary entry plus a gather by code. The per-entry work
-runs in the string kernels (kernels/strings.py: K4 for the predicates, K6
-for substring) whenever the dictionary has a char table; where it has
-none (an empty dictionary, an entry over 512 bytes, or a non-ASCII
-dictionary for substring, which counts characters) the host transform
-``_dict_map_val`` / ``_dict_map_str`` computes the same table in Python,
-as the reference does. A scalar input is computed on the host.
+runs in the string kernels (kernels/strings.py: K4 for the predicates, K5
+for LIKE, K6 for substring) whenever the dictionary has a char table;
+where it has none (an empty dictionary, an entry over 512 bytes, or a
+non-ASCII dictionary for substring or a LIKE with ``_``, which count
+characters) the host transform ``_dict_map_val`` / ``_dict_map_str``
+computes the same table in Python, as the reference does. A scalar input
+is computed on the host.
 """
 from __future__ import annotations
 
+import re
 from typing import Callable, Optional
 
 import numpy as np
@@ -50,9 +52,11 @@ def _dict_map_val(v: ColV, fn: Callable[[str], object],
 
 
 class _StrPredicate(Expression):
-    """starts_with / ends_with / contains against a literal needle."""
+    """starts_with / ends_with / contains / like against a literal
+    needle."""
 
-    kind: str = ""  # the K4 kind
+    kind: str = ""  # the kernel route: a K4 kind, or "like" for K5
+    escape = "\\"
 
     def __init__(self, child: Expression, needle: str):
         super().__init__([child])
@@ -71,7 +75,7 @@ class _StrPredicate(Expression):
             if v.is_null:
                 return Scalar(dt.BOOLEAN, None)
             return Scalar(dt.BOOLEAN, self.test(str(v.value)))
-        out = kstr.predicate_colv(v, self.kind, self.needle)
+        out = kstr.predicate_colv(v, self.kind, self.needle, self.escape)
         if out is not None:
             return out
         return _dict_map_val(v, self.test, dt.BOOLEAN)
@@ -96,6 +100,39 @@ class Contains(_StrPredicate):
 
     def test(self, s):
         return self.needle in s
+
+
+class Like(_StrPredicate):
+    """SQL LIKE: ``%`` any sequence, ``_`` any one character, and the
+    ``escape`` character makes the next one literal (a lone trailing
+    escape is itself a literal). The host test is the reference's
+    regex."""
+
+    kind = "like"
+
+    def __init__(self, child: Expression, pattern: str, escape: str = "\\"):
+        super().__init__(child, pattern)
+        self.pattern = pattern
+        self.escape = escape
+        regex = []
+        i = 0
+        while i < len(pattern):
+            ch = pattern[i]
+            if ch == escape and i + 1 < len(pattern):
+                regex.append(re.escape(pattern[i + 1]))
+                i += 2
+                continue
+            if ch == "%":
+                regex.append(".*")
+            elif ch == "_":
+                regex.append(".")
+            else:
+                regex.append(re.escape(ch))
+            i += 1
+        self._re = re.compile("(?s)^" + "".join(regex) + "$")
+
+    def test(self, s):
+        return self._re.match(s) is not None
 
 
 class Substring(Expression):

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"partition_order": 0, "radix_order": 0,
-                            "probe": 0, "match_table": 0, "substring": 0}
+                            "probe": 0, "match_table": 0, "like_table": 0,
+                            "substring": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -126,6 +127,9 @@ def _declare(stem: str, lib: ctypes.CDLL) -> None:
         lib.srt_k4_match_table.argtypes = [_P, _P, _I, _I, _P, _I, _I, _P,
                                            _P]
         lib.srt_k4_match_table.restype = _I
+        lib.srt_k5_like_table.argtypes = [_P, _P, _I, _I, _P, _I, _I, _I, _P,
+                                          _P]
+        lib.srt_k5_like_table.restype = _I
         lib.srt_k6_substring.argtypes = [_P, _P, _I, _I, _LL, _LL, _I, _P,
                                          _P, _P]
         lib.srt_k6_substring.restype = _I

@@ -1,6 +1,6 @@
-"""Dictionary-string kernels: the char-table encoder, K4 (match table) and
-K6 (substring), their wrappers and plain versions, and the routes the
-string expressions take through them.
+"""Dictionary-string kernels: the char-table encoder, K4 (match table), K5
+(LIKE table) and K6 (substring), their wrappers and plain versions, and
+the routes the string expressions take through them.
 
 A string column is int32 codes into a sorted host dictionary, so every
 string function splits into work per dictionary entry and a gather by
@@ -15,20 +15,26 @@ bound by the table's bytes; ``csrc/strings.cu`` runs one thread per entry
 with the needle in shared memory, and, unlike the TPU kernel, builds no
 window tensor, so ``contains`` has no size budget.
 
+``like_table`` replaces ``_like_table`` (same file): SQL LIKE per entry,
+greedy over the pattern's ``%``-separated segments (exact for segments
+of fixed length), ``_`` matching one byte. One thread per entry, with
+the parsed pattern in shared memory; like K4 it has no window budget.
+
 ``substring_table`` replaces the kernel of ``substring_colv`` (same
 file): Spark ``substring(pos, len)`` over an ASCII table, one thread per
 output byte, bound by the table's bytes in and out. The host then
 rebuilds the sorted dictionary of the slices and remaps the codes.
 
 Routes the reference takes by content stay: an entry longer than 512
-bytes gives no table, ``substring`` needs an ASCII dictionary (it counts
-characters), and an empty dictionary has no table; the expression then
-runs its host transform. Each wrapper launches its CUDA kernel for CUDA
-tensors, or raises, and runs its plain version for CPU tensors.
+bytes gives no table, ``substring`` and a LIKE pattern with ``_`` need
+an ASCII dictionary (they count characters), and an empty dictionary has
+no table; the expression then runs its host transform. Each wrapper
+launches its CUDA kernel for CUDA tensors, or raises, and runs its plain
+version for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -159,6 +165,162 @@ def match_table(chars: torch.Tensor, lens: torch.Tensor, kind: str,
     return out
 
 
+# -- K5 ----------------------------------------------------------------------
+
+#: one pattern token: a literal byte, or None for the one-byte wildcard
+_Token = Optional[int]
+#: how a segment is matched (the TPU kernel's three branches)
+LIKE_PREFIX, LIKE_SUFFIX, LIKE_SEARCH = 0, 1, 2
+
+
+class LikePattern(NamedTuple):
+    """A parsed LIKE pattern: the ``%``-separated segments (each a list of
+    tokens) and whether the first and last segments are anchored."""
+
+    segments: List[List[_Token]]
+    first_anchored: bool
+    last_anchored: bool
+
+
+def parse_like(pattern: str, escape: str) -> LikePattern:
+    """The reference's ``_parse_like`` plus its anchoring pass: an escaped
+    character is a literal (a lone trailing escape is itself a literal),
+    ``%`` separates segments and ``_`` is a one-byte wildcard. Anchoring
+    comes from the token stream, so an escaped trailing ``%`` anchors."""
+    segments: List[List[_Token]] = [[]]
+    starts_pct = ends_pct = False
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        pct = False
+        if ch == escape and i + 1 < len(pattern):
+            segments[-1].extend(pattern[i + 1].encode("utf-8"))
+            i += 2
+        else:
+            if ch == "%":
+                segments.append([])
+                pct = True
+            elif ch == "_":
+                segments[-1].append(None)
+            else:
+                segments[-1].extend(ch.encode("utf-8"))
+            i += 1
+        starts_pct = starts_pct or (pct and i == 1)
+        ends_pct = pct
+    return LikePattern(segments, not starts_pct, not ends_pct)
+
+
+def like_segments(lp: LikePattern) -> List[Tuple[int, List[_Token]]]:
+    """(mode, tokens) of every non-empty segment, in order: the TPU
+    kernel's branch for it (``LIKE_PREFIX``, ``LIKE_SUFFIX`` or
+    ``LIKE_SEARCH``). Empty segments match anything and are skipped."""
+    last = len(lp.segments) - 1
+    out = []
+    for si, seg in enumerate(lp.segments):
+        if not seg:
+            continue
+        if si == 0 and lp.first_anchored:
+            out.append((LIKE_PREFIX, seg))
+        elif si == last and lp.last_anchored:
+            out.append((LIKE_SUFFIX, seg))
+        else:
+            out.append((LIKE_SEARCH, seg))
+    return out
+
+
+def _exact_len(lp: LikePattern) -> Optional[int]:
+    """The byte length an entry must have when the pattern has no ``%``."""
+    if len(lp.segments) == 1 and lp.first_anchored and lp.last_anchored:
+        return len(lp.segments[0])
+    return None
+
+
+def like_table_plain(chars: torch.Tensor, lens: torch.Tensor, pattern: str,
+                     escape: str = "\\") -> torch.Tensor:
+    """The TPU kernel's arithmetic, segment by segment: an anchored first
+    segment compares bytes 0..m-1, an anchored last one the window at
+    len - m (which must start at or after the cursor), any other segment
+    takes its leftmost window at or after the cursor, one window at a
+    time (no (n, P, m) tensor); a pattern without ``%`` also needs the
+    exact length. ``_`` matches any one byte."""
+    n, L = chars.shape
+    dev = chars.device
+    lp = parse_like(pattern, escape)
+    lv = lens.to(torch.int64)
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    cur = torch.zeros(n, dtype=torch.int64, device=dev)
+    for mode, seg in like_segments(lp):
+        m = len(seg)
+        if m > L:
+            ok = torch.zeros_like(ok)
+            break
+        sv = torch.tensor([0 if t is None else t for t in seg],
+                          dtype=torch.uint8, device=dev)
+        wv = torch.tensor([t is None for t in seg], dtype=torch.bool,
+                          device=dev)
+        if mode == LIKE_PREFIX:
+            w = (chars[:, :m] == sv) | wv
+            ok = ok & w.all(1) & (lv >= m)
+            cur = torch.full_like(cur, m)
+        elif mode == LIKE_SUFFIX:
+            cols = lv[:, None] - m + torch.arange(m, device=dev)
+            w = (torch.gather(chars, 1, cols.clamp(0, L - 1)) == sv) | wv
+            ok = ok & w.all(1) & (lv - m >= cur)
+            cur = lv
+        else:
+            found = torch.zeros_like(ok)
+            first = torch.zeros_like(cur)
+            for p in range(L - m + 1):
+                hit = ((chars[:, p:p + m] == sv) | wv).all(1) & \
+                    (lv >= p + m) & (cur <= p) & ~found
+                first = torch.where(hit, torch.full_like(first, p), first)
+                found |= hit
+            ok = ok & found
+            cur = first + m
+    exact = _exact_len(lp)
+    if exact is not None:
+        ok = ok & (lv == exact)
+    return ok
+
+
+def like_table(chars: torch.Tensor, lens: torch.Tensor, pattern: str,
+               escape: str, ascii_only: bool) -> Optional[torch.Tensor]:
+    """bool[n]: does each entry match the SQL LIKE ``pattern``; None where
+    the reference declines too (``_`` over a non-ASCII table, where a
+    byte is not a character), and the caller runs its host transform.
+    A pattern whose literal bytes exceed L matches nothing (matched
+    segments never overlap), so it launches nothing."""
+    lp = parse_like(pattern, escape)
+    modes = like_segments(lp)
+    if not ascii_only and any(t is None for _, seg in modes for t in seg):
+        return None
+    n, L = chars.shape
+    if sum(len(seg) for _, seg in modes) > L:
+        return torch.zeros(n, dtype=torch.bool, device=chars.device)
+    if not chars.is_cuda:
+        return like_table_plain(chars, lens, pattern, escape)
+    chars, lens = chars.contiguous(), lens.contiguous()
+    nk.require_cuda("like_table", [chars, lens], [torch.uint8, torch.int32])
+    out = torch.empty(n, dtype=torch.bool, device=chars.device)
+    if n == 0:
+        return out
+    # one int32 spec: (offset, length, mode) per segment, then one entry
+    # per pattern byte, 0x100 standing for the wildcard
+    table, body = [], []
+    for mode, seg in modes:
+        table += [len(body), len(seg), mode]
+        body += [0x100 if t is None else t for t in seg]
+    spec = torch.tensor(table + body, dtype=torch.int32, device=chars.device)
+    exact = _exact_len(lp)
+    lib = nk.load("strings")
+    nk.check(lib.srt_k5_like_table(
+        chars.data_ptr(), lens.data_ptr(), n, L, spec.data_ptr(),
+        len(modes), len(body), -1 if exact is None else exact,
+        out.data_ptr(), nk.stream_handle(chars.device)), "like_table")
+    nk.LAUNCHES["like_table"] += 1
+    return out
+
+
 # -- K6 ----------------------------------------------------------------------
 
 
@@ -232,17 +394,25 @@ def gather_table(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return table[codes.to(torch.int64).clamp(0, table.shape[0] - 1)]
 
 
-def predicate_colv(v, kind: str, needle: str):
+def predicate_colv(v, kind: str, needle: str, escape: str = "\\"):
     """The boolean ColV of a starts / ends / contains predicate over a
-    dictionary column through K4, or None when the column has no char
-    table (the caller runs its host transform)."""
+    dictionary column through K4, or of ``like`` (``needle`` the pattern)
+    through K5; None when the column has no char table, or for a LIKE the
+    kernel declines (the caller runs its host transform)."""
     from spark_rapids_tpu_torch.columnar import dtypes as dt
     from spark_rapids_tpu_torch.expressions.base import ColV
 
     table = None if v.scol is None else char_table(v.scol)
     if table is None:
         return None
-    hit = match_table(table.chars, table.lens, kind, needle.encode("utf-8"))
+    if kind == "like":
+        hit = like_table(table.chars, table.lens, needle, escape,
+                         table.ascii_only)
+        if hit is None:
+            return None
+    else:
+        hit = match_table(table.chars, table.lens, kind,
+                          needle.encode("utf-8"))
     return ColV(dt.BOOLEAN, gather_table(hit, v.data), v.validity)
 
 

@@ -1,6 +1,7 @@
 """Plan nodes (the counterpart of spark_rapids_tpu/plan/nodes.py): the
-node types TPCx-BB q26 and TPC-H q14 and q22 use. Expressions inside nodes are bound: their
-``BoundReference`` ordinals index the child's output schema.
+node types TPCx-BB q26, TPC-H q14 and q22 and the SQL front end use.
+Expressions inside nodes are bound: their ``BoundReference`` ordinals
+index the child's output schema.
 """
 from __future__ import annotations
 
@@ -120,18 +121,36 @@ class SortNode(PlanNode):
         return self.children[0].output_schema()
 
 
+class LimitNode(PlanNode):
+    """The first ``n`` rows of the child, in its order."""
+
+    def __init__(self, n: int, child: PlanNode):
+        super().__init__([child])
+        self.n = n
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+    def describe(self) -> str:
+        return f"Limit[{self.n}]"
+
+
 class JoinNode(PlanNode):
-    """Equi-join on key ordinals. An inner join outputs left columns then
-    right; a ``left_anti`` join the left columns only."""
+    """Equi-join on key ordinals plus an optional residual ``condition``
+    over the joined row (left columns then right), applied as a filter
+    after the join, as the reference does. An inner join outputs left
+    columns then right; a ``left_anti`` join the left columns only."""
 
     def __init__(self, kind: str, left: PlanNode, right: PlanNode,
-                 left_keys: List[int], right_keys: List[int]):
+                 left_keys: List[int], right_keys: List[int],
+                 condition: Optional[Expression] = None):
         super().__init__([left, right])
         if len(left_keys) != len(right_keys) or not left_keys:
             raise ValueError("an equi-join needs matching key lists")
         self.kind = kind
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
+        self.condition = condition
 
     def output_schema(self) -> Schema:
         ls, rs = (c.output_schema() for c in self.children)

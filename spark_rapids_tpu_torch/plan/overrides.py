@@ -10,8 +10,8 @@ from typing import Optional
 from spark_rapids_tpu_torch import DEFAULT_DEVICE
 from spark_rapids_tpu_torch.execs.aggregate import HashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TorchExec
-from spark_rapids_tpu_torch.execs.basic import (FilterExec, ProjectExec,
-                                                ScanExec)
+from spark_rapids_tpu_torch.execs.basic import (FilterExec, LimitExec,
+                                                ProjectExec, ScanExec)
 from spark_rapids_tpu_torch.execs.joins import (KIND_MAP,
                                                 BroadcastHashJoinExec)
 from spark_rapids_tpu_torch.execs.sort import SortExec
@@ -48,10 +48,12 @@ def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
                                  device)
     if isinstance(node, pn.SortNode):
         return SortExec(node.specs, kids[0], device)
+    if isinstance(node, pn.LimitNode):
+        return LimitExec(node.n, kids[0], device)
     if isinstance(node, pn.JoinNode):
         if node.kind not in KIND_MAP:
             raise NotImplementedError(f"{node.kind} join is not ported")
         return BroadcastHashJoinExec(node.kind, kids[0], kids[1],
                                      node.left_keys, node.right_keys,
-                                     schema, device)
+                                     schema, device, node.condition)
     raise NotImplementedError(f"{node.describe()} is not ported")

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from spark_rapids_tpu_torch import kernels as nk  # noqa: E402
 from spark_rapids_tpu_torch.kernels import join as kjoin  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as ksort  # noqa: E402
 from spark_rapids_tpu_torch.kernels import strings as kstr  # noqa: E402
@@ -115,3 +116,55 @@ def test_substring_kernel_equals_plain(n):
             want = kstr.substring_table_plain(chars, lens, pos, length)
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
+
+
+# tests/test_kernels.py's LIKE patterns and the edges of the grammar (the
+# CPU tests hold the plain version against the reference on the same)
+_LIKE_PATTERNS = [("%apple%", "\\"), ("a%b\\_c", "\\"), ("100\\%", "\\"),
+                  ("_pple", "\\"), ("%quick%fox", "\\"), ("", "\\"),
+                  ("%", "\\"), ("%%", "\\"), ("ab", "\\"), ("ab\\", "\\"),
+                  ("%0\\%", "\\"), ("%" + "z" * 200 + "%", "\\"),
+                  ("_", "\\"), ("a_a", "\\"), ("%_b%", "\\"),
+                  ("ab%ba", "\\"), ("%a%b%a%", "\\"), ("a%", "\\"),
+                  ("%a", "\\"), ("%-9%", "\\"), ("%é%", "\\"), ("a!%%", "!")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 257, 100_003))
+def test_like_table_kernel_equals_plain(n):
+    dev = _card()
+    for alphabet in ("ab-9 %_", "ab-éï日"):
+        chars, lens = _string_table(n, n + 2, dev, alphabet)
+        ascii_only = bool((chars < 0x80).all())
+        for pattern, escape in _LIKE_PATTERNS:
+            got = kstr.like_table(chars, lens, pattern, escape, ascii_only)
+            if got is None:  # '_' over a non-ASCII table: the host's
+                assert not ascii_only and "_" in pattern
+                continue
+            want = kstr.like_table_plain(chars, lens, pattern, escape)
+            assert torch.equal(got, want), pattern
+
+
+@pytest.mark.cuda
+def test_session_sql_launches_like_table():
+    from spark_rapids_tpu_torch.api import Session
+
+    dev = _card()
+    r = np.random.default_rng(3)
+    words = np.array(["unknown", "unknown buyer", ">10000", "Unknown"],
+                     dtype=object)
+    data = {"k": r.integers(0, 5, 1000).astype(np.int64),
+            "s": words[r.integers(0, 4, 1000)], "v": r.random(1000)}
+    s = Session(device=dev)
+    s.create_temp_view("t", s.create_dataframe(data))
+    text = ("SELECT k, sum(v) AS sv, count(*) AS n FROM t "
+            "WHERE s LIKE 'unknown%' GROUP BY k ORDER BY k")
+    nk.reset_launches()
+    got = s.sql(text).collect()
+    assert nk.LAUNCHES["like_table"] >= 1
+    want = Session(device="cpu")
+    want.create_temp_view("t", want.create_dataframe(data))
+    expect = want.sql(text).collect()
+    assert list(got["k"]) == list(expect["k"])
+    assert list(got["n"]) == list(expect["n"])
+    np.testing.assert_allclose(got["sv"], expect["sv"], rtol=1e-9, atol=0)

@@ -263,7 +263,9 @@ def test_import_leaves_reference_and_host_libraries_out():
             "spark_rapids_tpu_torch.benchmarks.tpcxbb, "
             "spark_rapids_tpu_torch.benchmarks.tpcds, "
             "spark_rapids_tpu_torch.benchmarks.tpch, "
-            "spark_rapids_tpu_torch.benchmarks.q5lite; "
+            "spark_rapids_tpu_torch.benchmarks.q5lite, "
+            "spark_rapids_tpu_torch.benchmarks.profile_query, "
+            "spark_rapids_tpu_torch.sql, spark_rapids_tpu_torch.api; "
             "print(sorted(m for m in ('jax', 'spark_rapids_tpu', 'pandas', "
             "'pyarrow') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
