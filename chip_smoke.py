@@ -12,9 +12,15 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    at once, with the compiler's register and shared-memory report;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (TPCx-BB sf 10: a 28.8M-row mask for the
-   partition kernel, an ~18k-row Books build probed by 28.8M stream
-   hashes, a radix argsort over the ~70k HAVING survivors and over
-   28.8M int64 keys; TPC-H sf 10: the match table over part's p_type
+   partition kernel and its first 2,097,152 rows, one scan batch; an
+   ~18k-row Books build probed by 28.8M stream hashes and by one scan
+   batch of them, and builds of 26,000 and 28,000 item ids, either side
+   of the probe's shared-memory cutoff, probed by the same stream; a
+   radix argsort over the ~70k HAVING survivors, over 28.8M customer
+   keys and over 28.8M uniform int64 keys; TPC-DS q91 sf 10: its first
+   join, the 1.2M-row catalog_returns build on 6 call-center keys
+   probed by the 6 call centers and by a 2M-row stream drawn from
+   them; TPC-H sf 10: the match table over part's p_type
    dictionary and the sf-10 c_phone dictionary, and over a 1M-entry
    table past the reference's 64 MiB window budget; substring over the
    c_phone dictionary and over a table of pos / length edges; TPC-DS q91:
@@ -147,16 +153,53 @@ def _record(name, source, replaces, got, want, ms, plain_ms, lib_ms,
     return rec
 
 
-def phase_kernels(dev, ss, item, q26_cid):
-    """Kernel vs plain at the path's shapes. Returns name -> record."""
+def _hashes(col, dev):
+    """The port's int64 join hashes of one int64 column."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.ops import hashing
+
+    batch = batch_from_numpy([col], [dt.INT64], device=dev)
+    return hashing.hash_columns(batch, [0], [dt.INT64])
+
+
+def _probe_bytes(table, h_p):
+    """Bytes a probe of ``h_p`` must move: the stream's hash in and
+    (lo, cnt) out per row, the two offsets of every bucket it hits, and
+    the build hashes its searches need: all of a bucket of at most 4
+    entries, else two binary searches (2 x bit_length(occupancy)
+    entries) per distinct hash in it, never more than the bucket."""
+    import torch
+
+    from spark_rapids_tpu_torch.kernels import join as kjoin
+
+    n = h_p.numel()
+    if n == 0:
+        return 0
+    uh = torch.unique(h_p)
+    ub = kjoin._bucket(uh, table.table_bits)
+    buckets, per = torch.unique(ub, return_counts=True)
+    occ = (table.part[buckets + 1] - table.part[buckets]).to(torch.int64)
+    steps = torch.floor(torch.log2(occ.clamp(min=1).to(
+        torch.float64))).to(torch.int64) + 1
+    need = torch.where(occ <= 4, occ, torch.minimum(occ, 2 * steps * per))
+    return (16 * n + 8 * int(need.sum()) +
+            4 * min(table.part.numel(), 2 * buckets.numel()))
+
+
+def _case(rec):
+    return {k: rec[k] for k in ("shape", "equal", "kernel_ms", "plain_ms",
+                                "library_ms", "bound_ms", "bound_by")}
+
+
+def phase_kernels(dev, ss, item, q26_cid, q91):
+    """Kernel vs plain at the path's shapes. Returns name -> record of
+    the main path's case, with every case under ``cases``."""
     import numpy as np
     import torch
 
-    from spark_rapids_tpu_torch.columnar import dtypes as dt
-    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
     from spark_rapids_tpu_torch.kernels import join as kjoin
     from spark_rapids_tpu_torch.kernels import sort as ksort
-    from spark_rapids_tpu_torch.ops import hashing
 
     recs = {}
 
@@ -175,27 +218,71 @@ def phase_kernels(dev, ss, item, q26_cid):
         _time_ms(lambda: ksort.partition_order_plain(mask), 5),
         _time_ms(lambda: torch.argsort(~mask, stable=True), 5),
         n * 1 + n * 4, f"mask[{n}]")
+    # K1 at one scan batch (plan/overrides.py BATCH_SIZE_ROWS), the most
+    # rows one launch sees on the query paths
+    m2 = mask[: 1 << 21].clone()
+    k1_batch = _record(
+        "partition_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
+        "spark_rapids_tpu/native/kernels/sort.py:41",
+        [ksort.partition_order(m2)], [ksort.partition_order_plain(m2)],
+        _time_ms(lambda: ksort.partition_order(m2), 50),
+        _time_ms(lambda: ksort.partition_order_plain(m2), 5),
+        _time_ms(lambda: torch.argsort(~m2, stable=True), 20),
+        m2.numel() * 5, f"mask[{m2.numel()}] (one scan batch)")
+    recs["partition_order"]["cases"] = [
+        _case(recs["partition_order"]), _case(k1_batch)]
 
     # K3: the Books build's hashes, probed by every sale's item hash
     bmask = item["i_category"] == "Books"
-    build = batch_from_numpy([item["i_item_sk"][bmask]], [dt.INT64],
-                             device=dev)
-    stream = batch_from_numpy([ss["ss_item_sk"]], [dt.INT64], device=dev)
-    sb_h = torch.sort(hashing.hash_columns(build, [0], [dt.INT64])).values
-    h_p = hashing.hash_columns(stream, [0], [dt.INT64])
+    sb_h = torch.sort(_hashes(item["i_item_sk"][bmask], dev)).values
+    h_p = _hashes(ss["ss_item_sk"], dev)
     table = kjoin.build_table(sb_h)
-    got = kjoin.probe(table, h_p)
-    want = kjoin.probe_plain(table, h_p)
-    recs["probe"] = _record(
-        "probe", "spark_rapids_tpu_torch/kernels/csrc/join.cu",
-        "spark_rapids_tpu/native/kernels/join.py:114",
-        list(got), list(want),
-        _time_ms(lambda: kjoin.probe(table, h_p), 20),
-        _time_ms(lambda: kjoin.probe_plain(table, h_p), 3),
-        _time_ms(lambda: (torch.searchsorted(sb_h, h_p),
-                          torch.searchsorted(sb_h, h_p, right=True)), 5),
-        h_p.numel() * 8 + sb_h.numel() * 8 + table.part.numel() * 4 +
-        h_p.numel() * 8, f"build[{sb_h.numel()}] x stream[{h_p.numel()}]")
+    k3 = []
+
+    def k3_case(label, table, sb_h, h_p, iters=20, show=True):
+        got = kjoin.probe(table, h_p)
+        want = kjoin.probe_plain(table, h_p)
+        rec = _record(
+            "probe", "spark_rapids_tpu_torch/kernels/csrc/join.cu",
+            "spark_rapids_tpu/native/kernels/join.py:114",
+            list(got), list(want),
+            _time_ms(lambda: kjoin.probe(table, h_p), iters),
+            _time_ms(lambda: kjoin.probe_plain(table, h_p), 3),
+            _time_ms(lambda: (torch.searchsorted(sb_h, h_p),
+                              torch.searchsorted(sb_h, h_p, right=True)), 5),
+            _probe_bytes(table, h_p), f"{label}: build[{sb_h.numel()}] x "
+            f"stream[{h_p.numel()}]", show=show)
+        rec["longest_run"] = int(got[1].max()) if h_p.numel() else 0
+        if not show:
+            print(json.dumps(rec))
+        k3.append(rec)
+        return rec
+
+    k3_case("q26 Books", table, sb_h, h_p)
+    k3_case("q26 Books, one scan batch", table, sb_h,
+            h_p[: 1 << 21].clone(), iters=50, show=False)
+    # the same stream against builds of the first 26,000 and 28,000 item
+    # ids: either side of the ~27,000 rows the staged probe holds in
+    # shared memory
+    for rows in (26_000, 28_000):
+        ids = np.arange(1, rows + 1, dtype=np.int64)
+        side_h = torch.sort(_hashes(ids, dev)).values
+        k3_case(f"{rows} item ids", kjoin.build_table(side_h), side_h, h_p,
+                show=False)
+    # q91's first join: catalog_returns (1.2M rows, 6 call centers) is
+    # the build, the 6 call_center rows the stream; then a 2M-row stream
+    # (one scan batch) drawn from the same 6 keys
+    cr_h = torch.sort(_hashes(q91["catalog_returns"]["cr_call_center_sk"],
+                              dev)).values
+    cr_table = kjoin.build_table(cr_h)
+    cc_h = _hashes(q91["call_center"]["cc_call_center_sk"], dev)
+    k3_case("q91 first join", cr_table, cr_h, cc_h, iters=50, show=False)
+    pick = torch.from_numpy(np.random.default_rng(91).integers(
+        0, cc_h.numel(), 1 << 21)).to(dev)
+    k3_case("q91 keys, one scan batch", cr_table, cr_h, cc_h[pick],
+            show=False)
+    recs["probe"] = dict(k3[0])
+    recs["probe"]["cases"] = [_case(c) for c in k3]
 
     # K2: ORDER BY cid over the HAVING survivors (the lexsort keys: a
     # 1-bit liveness rank, then the int64 key), and over 28.8M int64 keys
@@ -213,16 +300,22 @@ def phase_kernels(dev, ss, item, q26_cid):
         _time_ms(lambda: torch.argsort(cid, stable=True), 50),
         cid.numel() * (4 + 8 + 4), f"survivors[{cid.numel()}]")
     big = torch.from_numpy(ss["ss_customer_sk"]).to(dev)
-    got = ksort.radix_order([big])
-    want = ksort.radix_order_plain([big])
-    recs["radix_order_28m"] = _record(
-        "radix_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
-        "spark_rapids_tpu/native/kernels/sort.py:87",
-        [got], [want],
-        _time_ms(lambda: ksort.radix_order([big]), 5),
-        _time_ms(lambda: ksort.radix_order_plain([big]), 1, warmup=1),
-        _time_ms(lambda: torch.argsort(big, stable=True), 5),
-        big.numel() * (8 + 4), f"keys[{big.numel()}]")
+    rnd = torch.from_numpy(np.random.default_rng(5).integers(
+        -2**63, 2**63 - 1, big.numel(), dtype=np.int64)).to(dev)
+    k2 = [recs["radix_order"]]
+    for label, k in (("ss_customer_sk", big), ("uniform int64", rnd)):
+        got = ksort.radix_order([k])
+        want = ksort.radix_order_plain([k])
+        k2.append(_record(
+            "radix_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
+            "spark_rapids_tpu/native/kernels/sort.py:87",
+            [got], [want],
+            _time_ms(lambda: ksort.radix_order([k]), 5),
+            _time_ms(lambda: ksort.radix_order_plain([k]), 1, warmup=1),
+            _time_ms(lambda: torch.argsort(k, stable=True), 5),
+            k.numel() * (8 + 4), f"{label} keys[{k.numel()}]"))
+        del got, want
+    recs["radix_order"]["cases"] = [_case(c) for c in k2]
     torch.cuda.synchronize()
     return recs
 
@@ -321,7 +414,7 @@ def phase_string_kernels(dev, part, customer):
         shape=f"edges [{edge[0].shape[0]}, {edge[0].shape[1]}] x "
         f"{len(edges)} (pos, length) cases", equal=True,
         kernel_ms=max(c["kernel_ms"] for c in edges),
-        plain_ms=max(c["plain_ms"] for c in edges))
+        plain_ms=max(c["plain_ms"] for c in edges), library_ms=None)
     print(json.dumps(summary))
     torch.cuda.synchronize()
     recs = {"match_table": dict(k4[0]), "substring": dict(k6[0])}
@@ -614,7 +707,7 @@ def main() -> int:
               f"{len(q91_tables['catalog_returns']['cr_net_loss'])} "
               f"catalog_returns; {time.perf_counter() - t0:.1f} s")
         phase = "kernels"
-        recs = phase_kernels(dev, ss, item, want["cid"])
+        recs = phase_kernels(dev, ss, item, want["cid"], q91_tables)
         phase = "string kernels"
         srecs, phone, seeded = phase_string_kernels(dev, part, customer)
         recs.update(srecs)
@@ -651,15 +744,8 @@ def main() -> int:
         entry.update(launches=sum(by_path.values()),
                      launches_by_path=by_path, ms=r["kernel_ms"],
                      plain_ms=r["plain_ms"])
-        if key == "radix_order":
-            big = recs["radix_order_28m"]
-            entry["at_28800000_keys"] = {
-                k: big[k] for k in ("equal", "kernel_ms", "plain_ms",
-                                    "library_ms", "bound_ms")}
         if "cases" in r:
-            entry["cases"] = [{k: c[k] for k in (
-                "shape", "equal", "kernel_ms", "plain_ms", "bound_ms",
-                "bound_by")} for c in r["cases"]]
+            entry["cases"] = [_case(c) for c in r["cases"]]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,7 @@
 """Warm wall times of the port's TPC queries on the card, to compare two
 trees of the repository on one card in turns:
 
-    python -m spark_rapids_tpu_torch.benchmarks.walls [--query q14] \\
+    python -m spark_rapids_tpu_torch.benchmarks.walls [--query q91] \\
         [--sf 10] [--repeat 3]
     # another tree's package, this script:
     PYTHONPATH=/path/to/other/tree python path/to/walls.py --query q14
@@ -9,7 +9,8 @@ trees of the repository on one card in turns:
 Each query runs once to warm up, then ``--repeat`` times, each run
 through apply_overrides -> collect ending in a synchronize. The plans
 come from ``profile_query._plan_fn`` of the tree being timed, which
-every tree of the port has had since TPC-H q14 and q22. Prints one JSON
+every tree of the port has had since TPC-H q14 and q22 (q91, through
+``Session.sql``, since the SQL front end). Prints one JSON
 line per query with the card's name and power limit. Needs a CUDA
 device.
 """
@@ -30,7 +31,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q26", "q14", "q22"),
+    ap.add_argument("--query", choices=("q26", "q14", "q22", "q91"),
                     action="append")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--repeat", type=int, default=3)

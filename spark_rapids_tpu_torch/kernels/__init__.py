@@ -114,14 +114,14 @@ def _declare(stem: str, lib: ctypes.CDLL) -> None:
         lib.srt_k1_scratch_ints.restype = _I
         lib.srt_k1_partition_order.argtypes = [_P, _I, _P, _P, _P]
         lib.srt_k1_partition_order.restype = _I
-        lib.srt_k2_scratch_bytes.argtypes = [_I]
+        lib.srt_k2_scratch_bytes.argtypes = [_I, _I, ctypes.POINTER(_I)]
         lib.srt_k2_scratch_bytes.restype = ctypes.c_size_t
         lib.srt_k2_radix_order.argtypes = [
             _I, ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I),
             _I, _P, _P, _P]
         lib.srt_k2_radix_order.restype = _I
     elif stem == "join":
-        lib.srt_k3_probe.argtypes = [_P, _P, _I, _P, _I, _P, _P, _P]
+        lib.srt_k3_probe.argtypes = [_P, _I, _P, _I, _P, _I, _P, _P, _P]
         lib.srt_k3_probe.restype = _I
     elif stem == "strings":
         lib.srt_k4_match_table.argtypes = [_P, _P, _I, _I, _P, _I, _I, _P,

@@ -10,11 +10,15 @@ returning the leftmost hash match ``lo`` and the match run length
 ``counts``: the contract of two ``searchsorted`` calls.
 
 On the card the probe is bound by the stream side's bytes (8 B in, 8 B
-out per row); ``csrc/join.cu`` runs one thread per probe row over its own
-bucket, and the build column and table stay in L2. The TPU kernel carried
-the build hashes as unsigned values with padding parked at u64 max; the
-port keeps them signed (the two orders agree) and has no padding, so its
-table covers exactly the build's rows.
+out per row). ``csrc/join.cu`` probes four rows per thread; a build of up
+to about 27,000 rows is staged in shared memory with a coarse bucket
+table of its own, a larger one is read from L2 through ``part``. A
+bucket of a few entries is scanned and a longer one binary-searched, so
+a skewed build (one key's run filling a bucket) costs O(log run) per
+probe, not O(run). The TPU kernel carried the build hashes as unsigned
+values with padding parked at u64 max; the port keeps them signed (the
+two orders agree) and has no padding, so its table covers exactly the
+build's rows.
 """
 from __future__ import annotations
 
@@ -83,23 +87,29 @@ def table_from_reference(u_sorted: np.ndarray, part: np.ndarray,
 
 
 def probe_plain(table: ProbeTable, h_p: torch.Tensor):
-    """The TPU kernel's arithmetic: bucket by shift, two offset gathers,
-    then a scan of up to the largest bucket's occupancy."""
+    """The kernel's arithmetic: bucket by shift, two offset gathers, then
+    a binary search of the (ascending) bucket for the first hash not
+    below ``h`` and the first above it, ``ceil(log2(max_seg + 1))``
+    vectorised steps for the largest bucket's occupancy ``max_seg``.
+    ``lo`` is the lower end and ``counts`` the run between the two: the
+    TPU kernel's ``start + #(v < h)`` and ``#(v == h)``."""
     b = _bucket(h_p, table.table_bits)
     start = table.part[b].to(torch.int64)
     end = table.part[b + 1].to(torch.int64)
-    off = torch.zeros(h_p.shape[0], dtype=torch.int64, device=h_p.device)
-    cnt = torch.zeros_like(off)
     part = table.part.to(torch.int64)
     max_seg = int((part[1:] - part[:-1]).max()) if part.numel() > 1 else 0
-    n_b = table.sb_h.shape[0]
-    for t in range(max_seg):
-        in_seg = (start + t) < end
-        ut = table.sb_h[(start + t).clamp(0, max(n_b - 1, 0))] \
-            if n_b else torch.zeros_like(h_p)
-        off += ((ut < h_p) & in_seg).to(torch.int64)
-        cnt += ((ut == h_p) & in_seg).to(torch.int64)
-    return (start + off).to(torch.int32), cnt.to(torch.int32)
+    # row 0 searches lower_bound (v < h moves right), row 1 upper_bound
+    a = torch.stack([start, start])
+    z = torch.stack([end, end])
+    last = max(table.sb_h.shape[0] - 1, 0)
+    for _ in range(max_seg.bit_length()):
+        mid = (a + z) >> 1
+        v = table.sb_h[mid.clamp(0, last)]
+        right = torch.stack([v[0] < h_p, v[1] <= h_p])
+        active = a < z
+        a = torch.where(active & right, mid + 1, a)
+        z = torch.where(active & ~right, mid, z)
+    return a[0].to(torch.int32), (a[1] - a[0]).to(torch.int32)
 
 
 def probe(table: ProbeTable, h_p: torch.Tensor):
@@ -118,8 +128,8 @@ def probe(table: ProbeTable, h_p: torch.Tensor):
         return lo, cnt
     lib = nk.load("join")
     nk.check(lib.srt_k3_probe(
-        table.sb_h.data_ptr(), table.part.data_ptr(), table.table_bits,
-        h_p.data_ptr(), n, lo.data_ptr(), cnt.data_ptr(),
+        table.sb_h.data_ptr(), table.sb_h.shape[0], table.part.data_ptr(),
+        table.table_bits, h_p.data_ptr(), n, lo.data_ptr(), cnt.data_ptr(),
         nk.stream_handle(h_p.device)), "probe")
     nk.LAUNCHES["probe"] += 1
     return lo, cnt

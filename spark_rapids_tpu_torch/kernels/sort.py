@@ -9,11 +9,13 @@ every row is read twice and written once.
 
 ``radix_order`` replaces ``radix_order`` of the same file: a stable
 ascending argsort of integral keys, most significant first, over their
-order-preserving unsigned views. It is bound by bytes too: each 8-bit
-digit pass streams a (u64 key, i32 index) pair in and out. The CUDA
-version runs 8-bit LSD passes (histogram, scan, stable scatter) where the
-TPU kernel ran 1-bit passes; a stable sort's permutation is unique, so
-the two agree bit for bit.
+order-preserving unsigned views. It is bound by bytes too: the keys read
+once and the permutation written once. The CUDA version runs 8-bit LSD
+passes where the TPU kernel ran 1-bit passes (a stable sort's permutation
+is unique, so the two agree bit for bit): one histogram of every digit of
+every key, then one one-sweep kernel per pass whose digit varies. A pass
+whose digit is the same for all rows is the identity and is skipped; the
+wrapper's call synchronises the stream once to read which.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors; the plain versions repeat the TPU kernels'
@@ -146,12 +148,12 @@ def radix_order(keys: Sequence[torch.Tensor],
     if n == 0:
         return out
     lib = nk.load("sort")
-    scratch = torch.empty(lib.srt_k2_scratch_bytes(n), dtype=torch.uint8,
-                          device=keys[0].device)
     m = len(keys)
     ptrs = (ctypes.c_void_p * m)(*[k.data_ptr() for k in keys])
     codes = (ctypes.c_int * m)(*[_KEY_CODE[k.dtype] for k in keys])
     wid = (ctypes.c_int * m)(*bit_list)
+    scratch = torch.empty(lib.srt_k2_scratch_bytes(n, m, wid),
+                          dtype=torch.uint8, device=keys[0].device)
     nk.check(lib.srt_k2_radix_order(
         m, ptrs, codes, wid, n, out.data_ptr(), scratch.data_ptr(),
         nk.stream_handle(keys[0].device)), "radix_order")

@@ -18,8 +18,9 @@ from spark_rapids_tpu_torch.kernels import sort as ksort  # noqa: E402
 from spark_rapids_tpu_torch.kernels import strings as kstr  # noqa: E402
 
 # sizes around the kernels' tiles (2048 rows for the partition kernel,
-# 4096 for a radix pass)
+# 3072 for a radix pass, 1024 probe rows for a probe block)
 _SIZES = (0, 1, 2047, 2049, 4097, 100_003)
+_I64 = (-2**63, 2**63 - 1)
 
 
 def _card():
@@ -76,6 +77,112 @@ def test_probe_kernel_equals_plain(n):
     empty = kjoin.build_table(torch.zeros(0, dtype=torch.int64, device=dev))
     for a, b in zip(kjoin.probe(empty, h_p), kjoin.probe_plain(empty, h_p)):
         assert torch.equal(a, b)
+
+
+def _radix_key_sets(n, r, dev):
+    """Key sets whose 8-bit passes are some, all or none trivial."""
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return {
+        # ids below 2^20 in int64 behind a 1-bit rank: 3 of 9 passes run
+        "some": ([t(np.zeros(n, np.int32)),
+                  t(r.integers(1, 1_000_000, n).astype(np.int64))],
+                 [1, None]),
+        "all": ([t(np.full(n, 7, np.int64)), t(np.full(n, -2, np.int16))],
+                None),
+        "none": ([t(r.integers(*_I64, n, dtype=np.int64))], None),
+        "negative": ([t(r.integers(_I64[0], 0, n, dtype=np.int64))], None),
+        # two digits varying at the top of the key only
+        "high": ([t(r.integers(0, 300, n).astype(np.int64) << 48)], None),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _SIZES)
+def test_radix_order_kernel_skips_trivial_passes(n):
+    dev = _card()
+    r = np.random.default_rng(n + 5)
+    for name, (keys, widths) in _radix_key_sets(n, r, dev).items():
+        got = ksort.radix_order(keys, widths)
+        assert torch.equal(got, ksort.radix_order_plain(keys, widths)), name
+        if name == "all":
+            assert torch.equal(got, torch.arange(n, dtype=torch.int32,
+                                                 device=dev))
+
+
+@pytest.mark.cuda
+def test_radix_order_kernel_many_tiles():
+    """977 tiles of 3072 rows: the look-back order across many blocks."""
+    dev = _card()
+    n = 3_000_017
+    r = np.random.default_rng(17)
+    for keys, widths in _radix_key_sets(n, r, dev).values():
+        assert torch.equal(ksort.radix_order(keys, widths),
+                           ksort.radix_order_plain(keys, widths))
+    keys = [torch.from_numpy(r.integers(-3, 3, n).astype(np.int8)).to(dev),
+            torch.from_numpy(r.integers(*_I64, n, dtype=np.int64)).to(dev)]
+    assert torch.equal(ksort.radix_order(keys), ksort.radix_order_plain(keys))
+
+
+def _long_run_table(dev, n_build, keys):
+    """A hash-sorted build of ``n_build`` rows over the given keys."""
+    r = np.random.default_rng(n_build)
+    sb = torch.sort(torch.from_numpy(r.choice(keys, n_build)).to(dev)).values
+    return kjoin.build_table(sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _SIZES)
+def test_probe_kernel_equals_plain_on_long_runs(n):
+    dev = _card()
+    r = np.random.default_rng(n + 9)
+    keys = r.integers(*_I64, 3, dtype=np.int64)
+    table = _long_run_table(dev, 3 * n + 30, keys)
+    probes = np.concatenate([keys, keys - 1, keys + 1,
+                             r.integers(*_I64, n, dtype=np.int64)])
+    h_p = torch.from_numpy(r.choice(probes, n)).to(dev)
+    for a, b in zip(kjoin.probe(table, h_p), kjoin.probe_plain(table, h_p)):
+        assert torch.equal(a, b)
+    # a stream that starts off the 16-byte alignment
+    for a, b in zip(kjoin.probe(table, h_p[1:]),
+                    kjoin.probe_plain(table, h_p[1:])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_build", (600, 40_000))
+def test_probe_kernel_equals_plain_on_padded_table(n_build):
+    """A table whose build column carries padding rows at int64 max past
+    its live rows, as one carried from the reference does; 600 rows are
+    probed from shared memory, 40,000 from L2."""
+    dev = _card()
+    r = np.random.default_rng(n_build)
+    live = torch.sort(torch.from_numpy(
+        r.integers(-2**62, 2**62, n_build, dtype=np.int64)).to(dev)).values
+    pad = torch.full((n_build // 4,), _I64[1], dtype=torch.int64, device=dev)
+    table = kjoin.ProbeTable(torch.cat([live, pad]),
+                             kjoin.build_table(live).part)
+    h_p = torch.cat([live[:99], pad[:1], live.new_tensor([_I64[0]])])
+    for a, b in zip(kjoin.probe(table, h_p), kjoin.probe_plain(table, h_p)):
+        assert torch.equal(a, b)
+    assert int(kjoin.probe(table, pad[:1])[1][0]) == 0
+
+
+@pytest.mark.cuda
+def test_probe_kernel_equals_plain_at_q91_first_join_shape():
+    """1.2M build rows on 6 keys (runs of ~200k), probed by the 6 keys
+    and by a 2,097,152-row stream drawn from them."""
+    dev = _card()
+    r = np.random.default_rng(91)
+    keys = r.integers(*_I64, 6, dtype=np.int64)
+    table = _long_run_table(dev, 1_200_000, keys)
+    for h in (keys, r.choice(np.concatenate([keys, keys + 1]), 1 << 21)):
+        h_p = torch.from_numpy(h).to(dev)
+        got = kjoin.probe(table, h_p)
+        want = kjoin.probe_plain(table, h_p)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[1].max()) > 150_000
 
 
 def _string_table(n, seed, dev, alphabet="ab-9 ", max_len=40):

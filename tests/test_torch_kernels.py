@@ -154,3 +154,54 @@ def test_probe_plain_empty_build():
         lo, cnt = kjoin.probe(ptable, torch.from_numpy(h_p))
         np.testing.assert_array_equal(lo.numpy(), lo_r)
         np.testing.assert_array_equal(cnt.numpy(), cnt_r)
+
+
+def test_probe_plain_long_runs_match_reference_and_searchsorted():
+    """A build of 600 hashes over 3 distinct values (runs of 200, 190 and
+    210, each filling its bucket), in 640 slots with padding at int64
+    max. Probes hit each run, miss it by one inside its bucket, miss at
+    random, and sit at int64 min and max. The port's binary search must
+    give the reference's scan and two searchsorted calls, on the
+    reference's table carried across and on its own table."""
+    r = np.random.default_rng(23)
+    lo64, hi64 = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    vals = np.array([-2**62 + 5, 7, 2**62 - 9], dtype=np.int64)
+    h_b = np.repeat(vals, [200, 190, 210])
+    table, sh = _reference_table(
+        np.concatenate([r.permutation(h_b), np.zeros(40, np.int64)]), 600,
+        640)
+    h_p = np.concatenate([vals, vals - 1, vals + 1, [lo64, hi64],
+                          r.integers(lo64, hi64, size=9, dtype=np.int64)])
+    lo_r, cnt_r = (_np(x) for x in rjoin.probe(table, jnp.asarray(h_p)))
+    assert list(cnt_r[:3]) == [200, 190, 210]
+    live = torch.from_numpy(sh[:600])
+    hp = torch.from_numpy(h_p)
+    left = torch.searchsorted(live, hp).numpy()
+    right = torch.searchsorted(live, hp, right=True).numpy()
+    np.testing.assert_array_equal(lo_r, left)
+    np.testing.assert_array_equal(cnt_r, right - left)
+    for ptable in (kjoin.table_from_reference(_np(table.u_sorted),
+                                              _np(table.part), "cpu"),
+                   kjoin.build_table(live)):
+        assert int((ptable.part[1:] - ptable.part[:-1]).max()) >= 200
+        lo, cnt = kjoin.probe(ptable, hp)
+        np.testing.assert_array_equal(lo.numpy(), lo_r)
+        np.testing.assert_array_equal(cnt.numpy(), cnt_r)
+
+
+@pytest.mark.parametrize("constant", ["one", "all"])
+def test_radix_order_plain_constant_keys_match_reference(constant):
+    """Keys whose digits are the same for every row (the passes the card
+    skips): one constant key beside a varying one, and every key
+    constant, where the permutation is the identity."""
+    r = np.random.default_rng(29)
+    n = 77
+    first = np.full(n, -100, np.int8)
+    second = np.full(n, 5, np.int8) if constant == "all" else \
+        r.integers(-128, 128, n).astype(np.int8)
+    keys = [first, second]
+    want = _np(rsort.radix_order([jnp.asarray(k) for k in keys]))
+    got = ksort.radix_order([torch.from_numpy(k) for k in keys])
+    np.testing.assert_array_equal(got.numpy(), want)
+    if constant == "all":
+        np.testing.assert_array_equal(want, np.arange(n))
