@@ -12,7 +12,8 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    at once, with the compiler's register and shared-memory report;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (TPCx-BB sf 10: a 28.8M-row mask for the
-   partition kernel and its first 2,097,152 rows, one scan batch; an
+   partition kernel and its first 2,097,152 rows, one scan batch, each
+   with its true count checked against ``mask.sum()``; an
    ~18k-row Books build probed by 28.8M stream hashes and by one scan
    batch of them, and builds of 26,000 and 28,000 item ids, either side
    of the probe's shared-memory cutoff, probed by the same stream; a
@@ -21,15 +22,19 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    join, the 1.2M-row catalog_returns build on 6 call-center keys
    probed by the 6 call centers and by a 2M-row stream drawn from
    them; TPC-H sf 10: the match table over part's p_type
-   dictionary and the sf-10 c_phone dictionary, and over a 1M-entry
-   table past the reference's 64 MiB window budget; substring over the
+   dictionary and the sf-10 c_phone dictionary, over a 1M-entry
+   table past the reference's 64 MiB window budget, and over a 65,536 x
+   512 table (a group of lanes per row; a 70-byte needle takes the
+   window path); substring over the
    c_phone dictionary and over a table of pos / length edges; TPC-DS q91:
    the LIKE table over household_demographics' hd_buy_potential, then
    over the sf-10 c_phone dictionary and the 1M-entry table with the
    reference's test patterns and patterns past its budget). Results
    must be equal; times come from CUDA events over warmed repeated
    launches, beside the bytes bound at 3.35 TB/s and, where one exists,
-   one PyTorch library call computing the same function;
+   one PyTorch library call computing the same function; the partition
+   and match-table kernels also give their device time alone
+   (``torch.profiler``, kernel durations only) beside the wrapper's;
 4. the q5lite step: 4M rows, 65,536 keys, seed 7, against a numpy
    oracle (groups, keys and counts exact, sums within 1e-9 relative);
 5. TPCx-BB q26 at sf 10 (store_sales 28.8M rows, item 180k, 1M
@@ -47,11 +52,15 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    front end (Session.create_temp_view -> sql -> collect), group keys
    exact and sums within 1e-9 relative of a numpy oracle, with K5, K3
    and K1 launched during the query;
-9. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+9. the partition kernel at the sizes the timed query runs launched it
+   with (a histogram of them, then cases at their quantiles, each
+   against its plain version and its count against ``mask.sum()``);
+10. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Each query phase sets the launch counts to 0 just before its timed run
-and reads them just after.
+and reads them just after; the launch sizes are kept during those runs
+only.
 
 It imports nothing of JAX or of spark_rapids_tpu. It needs one CUDA card
 and this repository around it; without either it fails.
@@ -105,6 +114,32 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, kernel: str, iters: int = 20):
+    """Mean device time per call of the kernels whose name holds
+    ``kernel``, from ``torch.profiler`` (their durations alone, no host
+    work or gaps); None where the profiler shows no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # a window in which the profiler recorded no such kernel is redone
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = count = 0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                us += getattr(e, "device_time_total", None) or \
+                    getattr(e, "cuda_time_total", 0)
+                count += e.count
+        if count:
+            return us / 1e3 / count
+    return None
 
 
 def _max_abs_err(a, b) -> float:
@@ -189,7 +224,41 @@ def _probe_bytes(table, h_p):
 
 def _case(rec):
     return {k: rec[k] for k in ("shape", "equal", "kernel_ms", "plain_ms",
-                                "library_ms", "bound_ms", "bound_by")}
+                                "library_ms", "bound_ms", "bound_by",
+                                "device_ms", "count_ms") if k in rec}
+
+
+def _k1_case(mask, label, iters, lib_iters, show=True):
+    """K1 against its plain version on ``mask``, its count against
+    ``mask.sum()``; the wrapper's time without and with the count, and
+    the kernel's device time alone."""
+    import torch
+
+    from spark_rapids_tpu_torch.kernels import sort as ksort
+
+    n = mask.numel()
+    got, n_true = ksort.partition_order_count(mask)
+    want_n = int(mask.sum())
+    if n_true != want_n:
+        raise AssertionError(f"partition_order ({label}) counted {n_true} "
+                             f"trues, mask.sum() {want_n}")
+    rec = _record(
+        "partition_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
+        "spark_rapids_tpu/native/kernels/sort.py:41",
+        [got, ksort.partition_order(mask)],
+        [ksort.partition_order_plain(mask)] * 2,
+        _time_ms(lambda: ksort.partition_order(mask), iters),
+        _time_ms(lambda: ksort.partition_order_plain(mask), 5),
+        _time_ms(lambda: torch.argsort(~mask, stable=True), lib_iters),
+        n * 1 + n * 4, f"mask[{n}] {label}".strip(), show=False)
+    rec.update(n_true=n_true,
+               count_ms=_time_ms(lambda: ksort.partition_order_count(mask),
+                                 iters),
+               device_ms=_device_ms(lambda: ksort.partition_order(mask),
+                                    "k1_"))
+    if show:
+        print(json.dumps(rec))
+    return rec
 
 
 def phase_kernels(dev, ss, item, q26_cid, q91):
@@ -207,30 +276,12 @@ def phase_kernels(dev, ss, item, q26_cid, q91):
     books = np.zeros(int(item["i_item_sk"].max()) + 1, dtype=bool)
     books[item["i_item_sk"][item["i_category"] == "Books"]] = True
     mask = torch.from_numpy(books[ss["ss_item_sk"]]).to(dev)
-    n = mask.shape[0]
-    got = ksort.partition_order(mask)
-    want = ksort.partition_order_plain(mask)
-    recs["partition_order"] = _record(
-        "partition_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
-        "spark_rapids_tpu/native/kernels/sort.py:41",
-        [got], [want.to(torch.int32)],
-        _time_ms(lambda: ksort.partition_order(mask), 20),
-        _time_ms(lambda: ksort.partition_order_plain(mask), 5),
-        _time_ms(lambda: torch.argsort(~mask, stable=True), 5),
-        n * 1 + n * 4, f"mask[{n}]")
+    recs["partition_order"] = _k1_case(mask, "", 20, 5)
     # K1 at one scan batch (plan/overrides.py BATCH_SIZE_ROWS), the most
     # rows one launch sees on the query paths
-    m2 = mask[: 1 << 21].clone()
-    k1_batch = _record(
-        "partition_order", "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
-        "spark_rapids_tpu/native/kernels/sort.py:41",
-        [ksort.partition_order(m2)], [ksort.partition_order_plain(m2)],
-        _time_ms(lambda: ksort.partition_order(m2), 50),
-        _time_ms(lambda: ksort.partition_order_plain(m2), 5),
-        _time_ms(lambda: torch.argsort(~m2, stable=True), 20),
-        m2.numel() * 5, f"mask[{m2.numel()}] (one scan batch)")
-    recs["partition_order"]["cases"] = [
-        _case(recs["partition_order"]), _case(k1_batch)]
+    k1_batch = _k1_case(mask[: 1 << 21].clone(), "(one scan batch)", 50, 20)
+    recs["partition_order"]["cases"] = [dict(recs["partition_order"]),
+                                        k1_batch]
 
     # K3: the Books build's hashes, probed by every sale's item hash
     bmask = item["i_category"] == "Books"
@@ -362,7 +413,11 @@ def phase_string_kernels(dev, part, customer):
             _time_ms(lambda: kstr.match_table_plain(chars, lens, kind, nb),
                      3),
             None, n * L + n * 4 + m + n, f"{label} {kind} {needle!r} "
-            f"[{n}, {L}]", ops=int(win.sum()) * m)
+            f"[{n}, {L}]", ops=int(win.sum()) * m, show=False)
+        rec["device_ms"] = _device_ms(
+            lambda: kstr.match_table(chars, lens, kind, nb), "k4_")
+        rec["matches"] = int(got.sum())
+        print(json.dumps(rec))
         k4.append(rec)
 
     def k6_case(label, chars, lens, pos, length, iters=50, show=True):
@@ -401,6 +456,24 @@ def phase_string_kernels(dev, part, customer):
         raise AssertionError("the seeded table must exceed the budget")
     seeded = (_to_dev(chars, dev), _to_dev(lens, dev))
     k4_case("seeded", *seeded, "contains", needle)
+    # the widest rows the encoder gives (L = 512, a group of 32 lanes a
+    # row), with a 70-byte needle planted in every ninth entry: past the
+    # 64 bytes of the shift-and path
+    n5, L5 = 1 << 16, 512
+    lens5 = r.integers(0, L5 + 1, n5).astype(np.int32)
+    chars5 = np.frombuffer(b"abcd-", np.uint8)[r.integers(0, 5, (n5, L5))]
+    long_needle = "abcd-" * 14
+    for i in range(0, n5, 9):
+        if lens5[i] >= len(long_needle):
+            at = int(r.integers(0, lens5[i] - len(long_needle) + 1))
+            chars5[i, at:at + len(long_needle)] = np.frombuffer(
+                long_needle.encode(), np.uint8)
+    chars5[np.arange(L5)[None, :] >= lens5[:, None]] = 0
+    wide = (_to_dev(chars5, dev), _to_dev(lens5, dev))
+    for kind, nd in (("contains", long_needle), ("contains", "dc-ba"),
+                     ("starts", "abc"), ("ends", "-d")):
+        k4_case("wide", *wide, kind, nd)
+    del wide
     # q22: substring(c_phone, 1, 2), then the pos / length edges
     k6_case("c_phone", *phone, 1, 2)
     edge = (_to_dev(chars[:100_000, :32].copy(), dev),
@@ -544,17 +617,20 @@ def _run_query(name, run, nk):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     nk.reset_launches()
+    nk.record_sizes(True)
     t0 = time.perf_counter()
     got = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    sizes = nk.record_sizes(False)
     launches = dict(nk.LAUNCHES)
     missing = [k for k in PATH_KERNELS[name] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{name} never launched {missing}")
     return got, {"phase": name, "sf": SF, "warm_wall_s": wall,
                  "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
-                 "launches": launches}
+                 "launches": launches,
+                 "k1_sizes": sizes.get("partition_order", [])}
 
 
 def _check_columns(name, got, want):
@@ -661,6 +737,35 @@ def phase_q91(dev, tables, nk):
     return rec
 
 
+def phase_k1_sizes(dev, runs, rec):
+    """K1's launch sizes over the timed query runs, as one histogram line,
+    then K1 against its plain version at their quantiles (a seeded mask,
+    half true, of each size), appended to ``rec``'s cases."""
+    import numpy as np
+    import torch
+
+    by_query = {q: r.pop("k1_sizes") for q, r in runs.items()}
+    sizes = sorted(x for v in by_query.values() for x in v)
+    edges = [1 << k for k in range(10, 23, 2)]  # 1 Ki .. 4 Mi rows
+    hist = {}
+    for x in sizes:
+        top = next((e for e in edges if x <= e), None)
+        label = f"<={top}" if top else f">{edges[-1]}"
+        hist[label] = hist.get(label, 0) + 1
+    print(json.dumps({"phase": "k1_launch_sizes", "launches": len(sizes),
+                      "rows": sum(sizes), "histogram": hist,
+                      "by_query": {q: sorted(v) for q, v in
+                                   by_query.items()}}))
+    picks = sorted({sizes[int(q * (len(sizes) - 1))]
+                    for q in (0.0, 0.25, 0.5, 0.75, 1.0)}) if sizes else []
+    r = np.random.default_rng(26)
+    for n in picks:
+        mask = torch.from_numpy(r.random(n) < 0.5).to(dev)
+        rec["cases"].append(_k1_case(mask, "(a query's launch size)", 50,
+                                     20))
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     try:
         import torch
@@ -728,6 +833,8 @@ def main() -> int:
         del customer, orders
         phase = "q91"
         runs["q91"] = phase_q91(dev, q91_tables, nk)
+        phase = "k1 launch sizes"
+        phase_k1_sizes(dev, runs, recs["partition_order"])
     except Exception as e:  # report the failing phase, print no result
         import traceback
 
@@ -743,7 +850,7 @@ def main() -> int:
         by_path = {q: run["launches"][key] for q, run in runs.items()}
         entry.update(launches=sum(by_path.values()),
                      launches_by_path=by_path, ms=r["kernel_ms"],
-                     plain_ms=r["plain_ms"])
+                     plain_ms=r["plain_ms"], device_ms=r.get("device_ms"))
         if "cases" in r:
             entry["cases"] = [_case(c) for c in r["cases"]]
         kernels.append(entry)

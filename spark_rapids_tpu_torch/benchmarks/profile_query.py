@@ -1,7 +1,8 @@
 """Where a query's time goes on the card: one warm run of TPCx-BB q26,
 TPC-H q14 or q22, or TPC-DS q91 (through ``Session.sql``) under
 ``torch.profiler`` (device time by kernel name,
-the run's wall time and the device's busy share of it), then one under
+the run's wall time, the device's busy share of it and the port's kernel
+launches), then one under
 ``cProfile`` (host time by Python function; cProfile slows Python calls,
 not native work, so its shares only point at candidates).
 
@@ -57,6 +58,7 @@ def profile(query: str, sf: float, top: int) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    from spark_rapids_tpu_torch import kernels as nk
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
@@ -67,11 +69,13 @@ def profile(query: str, sf: float, top: int) -> dict:
         torch.cuda.synchronize()
 
     run()
+    nk.reset_launches()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
+    launches = dict(nk.LAUNCHES)
     rows = []
     busy_us = 0.0
     for e in prof.key_averages():
@@ -90,6 +94,7 @@ def profile(query: str, sf: float, top: int) -> dict:
     return {"query": query, "sf": sf, "wall_s": wall,
             "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall if wall else None,
+            "launches": launches,
             "top_device_ms": [{"name": k[:80], "calls": c, "ms": us / 1e3}
                               for us, k, c in rows[:top]],
             "top_host_self_ms": [{"function": f[:80], "calls": c,

@@ -7,6 +7,11 @@ literal's position in the column's sorted dictionary, on a doubled axis
 (code * 2, or pos * 2 - 1 when the literal falls between entries), so
 equality and order both hold without touching the strings on the device.
 Two string columns compare after their dictionaries are unified.
+
+Float operands of a comparison count a subnormal as a zero of its sign
+(``ops.sortkeys.flush_subnormals``), as the reference's XLA backends do,
+so ``1e-310 = 0.0`` holds as it does for a join or a GROUP BY. Two
+literals compare as they are: the reference folds them as constants.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from spark_rapids_tpu_torch.columnar.column import (Scalar, StringColumn,
 from spark_rapids_tpu_torch.expressions.base import (
     ColV, EvalContext, EvalValue, Expression, LeafExpression, Literal,
     and_validity, broadcast, operand, value_validity)
+from spark_rapids_tpu_torch.ops.sortkeys import flush_subnormals
 
 
 class _Comparison(Expression):
@@ -63,7 +69,8 @@ class _Comparison(Expression):
             return Scalar(dt.BOOLEAN, bool(self.op(a.value, b.value)))
         if self.children[0].dtype is dt.STRING:
             a, b = self._string_codes(a, b)
-        data = self.op(operand(a), operand(b))
+        data = self.op(flush_subnormals(operand(a)),
+                       flush_subnormals(operand(b)))
         return ColV(dt.BOOLEAN, data,
                     and_validity(value_validity(a), value_validity(b)))
 

@@ -37,6 +37,10 @@ LAUNCHES: Dict[str, int] = {"partition_order": 0, "radix_order": 0,
                             "probe": 0, "match_table": 0, "like_table": 0,
                             "substring": 0}
 
+#: kernel name -> the size (rows or entries) of each launch, kept only
+#: while :func:`record_sizes` has it on
+SIZES: Optional[Dict[str, List[int]]] = None
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: source stem -> nvcc's register / shared-memory report (-Xptxas -v)
@@ -46,6 +50,22 @@ PTXAS_REPORT: Dict[str, str] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def record_sizes(on: bool) -> Dict[str, List[int]]:
+    """Start (``on``) or stop keeping each launch's size; returns what was
+    kept since the last start."""
+    global SIZES
+    kept = SIZES or {}
+    SIZES = {} if on else None
+    return kept
+
+
+def count_launch(name: str, size: int) -> None:
+    """One launch of kernel ``name`` over ``size`` rows or entries."""
+    LAUNCHES[name] += 1
+    if SIZES is not None:
+        SIZES.setdefault(name, []).append(size)
 
 
 def _nvcc() -> str:
@@ -110,9 +130,10 @@ _LL = ctypes.c_longlong
 
 def _declare(stem: str, lib: ctypes.CDLL) -> None:
     if stem == "sort":
-        lib.srt_k1_scratch_ints.argtypes = [_I]
-        lib.srt_k1_scratch_ints.restype = _I
-        lib.srt_k1_partition_order.argtypes = [_P, _I, _P, _P, _P]
+        lib.srt_k1_scratch_bytes.argtypes = []
+        lib.srt_k1_scratch_bytes.restype = ctypes.c_size_t
+        lib.srt_k1_partition_order.argtypes = [_P, _I, _P, _P, ctypes.c_uint,
+                                               _P, _P]
         lib.srt_k1_partition_order.restype = _I
         lib.srt_k2_scratch_bytes.argtypes = [_I, _I, ctypes.POINTER(_I)]
         lib.srt_k2_scratch_bytes.restype = ctypes.c_size_t
@@ -124,8 +145,8 @@ def _declare(stem: str, lib: ctypes.CDLL) -> None:
         lib.srt_k3_probe.argtypes = [_P, _I, _P, _I, _P, _I, _P, _P, _P]
         lib.srt_k3_probe.restype = _I
     elif stem == "strings":
-        lib.srt_k4_match_table.argtypes = [_P, _P, _I, _I, _P, _I, _I, _P,
-                                           _P]
+        lib.srt_k4_match_table.argtypes = [_P, _P, _I, _I, ctypes.c_char_p,
+                                           _I, _I, _P, _P]
         lib.srt_k4_match_table.restype = _I
         lib.srt_k5_like_table.argtypes = [_P, _P, _I, _I, _P, _I, _I, _I, _P,
                                           _P]

@@ -6,12 +6,29 @@
 //
 // Both are bound by device-memory bytes, not arithmetic.
 //
-// K1 reads one byte and writes four per row. Every pass is a streaming
-// read of contiguous tiles; the only cross-block state is a small array
-// of per-tile counts, scanned by a three-kernel device scan (tile scan,
-// one-block scan of tile totals, add-back). Stability comes from
-// ordering: a tile's rows are ranked in index order inside the tile, and
-// tiles are ranked in block order by the scan.
+// K1 reads one byte and writes four per row, and is bound by those bytes
+// (and, below a few million rows, by its one launch). One launch per
+// call, a persistent grid of co-resident blocks (a cooperative launch),
+// each owning a contiguous run of 4,096-row tiles:
+// - the block counts its trues with 16-byte loads of the mask (four
+//   tiles' loads in flight), one __vcmpne4 per 4 bytes and one __popc
+//   per 16, and publishes the count in a status word tagged with the
+//   call's epoch, so no memset clears stale words of an earlier call;
+// - it waits for every block's word of this epoch. A one-sweep
+//   look-back would give a tile the trues before it, but a false row's
+//   place, n_true + its false-rank, needs every tile's count: the true
+//   count of the whole mask, which the last tile would learn last. The
+//   wait is safe because all blocks are resident. The mask is read a
+//   second time (1 B a row against the 4 written);
+// - per tile, with the next tile's load already in flight, it ranks
+//   rows by a block scan of (valid, true) counts, stages the tile
+//   partitioned in shared memory (its trues, then its falses, each in
+//   row order) and writes both runs to consecutive addresses, so the
+//   4-byte stores coalesce;
+// - block 0 writes n_true, which the host copies back once per call.
+// An input of at most one tile runs on one block with no wait. The mask
+// may start anywhere: loads cover the 16-byte chunks that hold it and
+// mask out the bytes outside it.
 //
 // K2's bound is its keys read once and the int32 permutation written
 // once. Above that bound it pays for its passes:
@@ -45,8 +62,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int ITEMS = 8;                  // K1 and scans: rows per thread
-constexpr int TILE = THREADS * ITEMS;     // 2048 rows per block
 constexpr int RADIX = 256;                // K2: 8-bit digits
 
 __host__ __device__ inline int cdiv(long long a, long long b) {
@@ -83,125 +98,158 @@ __device__ int block_exclusive_scan(int v, int* total, int* smem) {
   return out;
 }
 
-// ---- device-wide exclusive scan of int32 -----------------------------------
-
-__global__ void scan_tiles(int* a, int m, int* tile_sums) {
-  __shared__ int smem[WARPS + 1];
-  const long long base = (long long)blockIdx.x * TILE +
-                         (long long)threadIdx.x * ITEMS;
-  int v[ITEMS];
-  int s = 0;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    long long i = base + j;
-    v[j] = i < m ? a[i] : 0;
-    s += v[j];
-  }
-  int total;
-  int p = block_exclusive_scan(s, &total, smem);
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    long long i = base + j;
-    if (i < m) a[i] = p;
-    p += v[j];
-  }
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
-}
-
-// One block walks the whole (short) array; also writes the grand total.
-__global__ void scan_single(int* a, int m, int* total_out) {
-  __shared__ int smem[WARPS + 1];
-  int carry = 0;
-  for (long long c0 = 0; c0 < m; c0 += TILE) {
-    const long long base = c0 + (long long)threadIdx.x * ITEMS;
-    int v[ITEMS];
-    int s = 0;
-#pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-      long long i = base + j;
-      v[j] = i < m ? a[i] : 0;
-      s += v[j];
-    }
-    int total;
-    int p = block_exclusive_scan(s, &total, smem) + carry;
-#pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-      long long i = base + j;
-      if (i < m) a[i] = p;
-      p += v[j];
-    }
-    carry += total;
-  }
-  if (threadIdx.x == 0) *total_out = carry;
-}
-
-__global__ void scan_add(int* a, int m, const int* tile_sums) {
-  const long long base = (long long)blockIdx.x * TILE;
-  const int add = tile_sums[blockIdx.x];
-  for (int k = threadIdx.x; k < TILE; k += THREADS) {
-    long long i = base + k;
-    if (i < m) a[i] += add;
-  }
-}
-
-// scratch: tile_sums[cdiv(m, TILE)] then total[1]; m > 0
-void device_exclusive_scan(int* a, int m, int* scratch, cudaStream_t s) {
-  const int nt = cdiv(m, TILE);
-  int* tile_sums = scratch;
-  int* total = scratch + nt;
-  scan_tiles<<<nt, THREADS, 0, s>>>(a, m, tile_sums);
-  scan_single<<<1, THREADS, 0, s>>>(tile_sums, nt, total);
-  scan_add<<<nt, THREADS, 0, s>>>(a, m, tile_sums);
-}
-
-int scan_scratch_ints(int m) { return cdiv(m, TILE) + 1; }
-
 // ---- K1: partition_order ---------------------------------------------------
 
-__global__ void k1_count(const uint8_t* mask, int n, int* counts) {
-  __shared__ int smem[WARPS + 1];
-  const long long base = (long long)blockIdx.x * TILE +
-                         (long long)threadIdx.x * ITEMS;
-  int c = 0;
+constexpr int K1_VEC = 16;                    // mask bytes a thread loads
+constexpr int K1_TILE = THREADS * K1_VEC;     // 4,096 rows a tile
+constexpr int K1_MAX_BLOCKS = 4096;           // status words in the scratch
+
+// bit k set when mask byte k of the 16 is nonzero
+__device__ __forceinline__ unsigned true_bits(uint4 v) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  unsigned bits = 0;
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    long long i = base + j;
-    if (i < n && mask[i]) ++c;
+  for (int j = 0; j < 4; ++j) {
+    const unsigned ne = __vcmpne4(w[j], 0u);  // 0xff in each nonzero byte
+    bits |= (((ne >> 7) & 1u) | ((ne >> 14) & 2u) | ((ne >> 21) & 4u) |
+             ((ne >> 28) & 8u)) << (4 * j);
   }
-  int total;
-  block_exclusive_scan(c, &total, smem);
-  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+  return bits;
 }
 
-// offsets[b]: trues in blocks before b; *n_true: trues overall. A true row
-// lands at its true-rank, a false row at n_true + its false-rank.
-__global__ void k1_scatter(const uint8_t* mask, int n, const int* offsets,
-                           const int* n_true, int* out) {
-  __shared__ int smem[WARPS + 1];
-  const long long base = (long long)blockIdx.x * TILE +
-                         (long long)threadIdx.x * ITEMS;
-  uint8_t m[ITEMS];
-  int c = 0;
+struct K1Args {
+  const uint8_t* chunks;  // the mask rounded down to 16 bytes
+  int head;               // mask - chunks: chunk byte v holds row v - head
+  int n;
+  int* out;
+  unsigned long long* status;  // [gridDim.x]: epoch << 32 | trues
+  unsigned epoch;
+  int* n_true;
+};
+
+// Rows of chunk bytes [c, c + 16) inside the mask, as a bit set.
+__device__ __forceinline__ unsigned valid_bits(const K1Args& a, long long c) {
+  const long long lo = max(0ll, (long long)a.head - c);
+  const long long hi = min(16ll, (long long)a.head + a.n - c);
+  if (hi <= lo) return 0u;
+  return ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+__device__ __forceinline__ uint4 load_chunk(const K1Args& a, long long c) {
+  if (c >= (long long)a.head + a.n) return make_uint4(0u, 0u, 0u, 0u);
+  return __ldg(reinterpret_cast<const uint4*>(a.chunks + c));
+}
+
+__global__ void __launch_bounds__(THREADS) k1_partition(K1Args a) {
+  __shared__ int s_rows[K1_TILE];  // a tile, partitioned
+  __shared__ int scan_smem[WARPS + 1];
+  __shared__ int s_red[2][WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long nchunk = (long long)a.head + a.n;
+  const int ntiles = cdiv(nchunk, K1_TILE);
+  // block b owns tiles [t0, t1), contiguous and in block order
+  const int per = ntiles / gridDim.x, extra = ntiles % gridDim.x;
+  const int t0 = blockIdx.x * per + min((int)blockIdx.x, extra);
+  const int t1 = t0 + per + ((int)blockIdx.x < extra ? 1 : 0);
+
+  // count this block's trues, four tiles' loads in flight at a time;
+  // keep the first tile's bits in registers
+  const long long lane0 = (long long)threadIdx.x * K1_VEC;
+  const long long c_first = (long long)t0 * K1_TILE + lane0;
+  const unsigned first_bits =
+      true_bits(load_chunk(a, c_first)) & valid_bits(a, c_first);
+  int mine = __popc(first_bits);
+  for (int t = t0 + 1; t < t1; t += 4) {
+    uint4 v[4];
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    long long i = base + j;
-    m[j] = (i < n) ? (mask[i] != 0) : 0;
-    c += m[j];
+    for (int u = 0; u < 4; ++u)
+      v[u] = t + u < t1 ? load_chunk(a, (long long)(t + u) * K1_TILE + lane0)
+                        : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (t + u < t1)
+        mine += __popc(true_bits(v[u]) &
+                       valid_bits(a, (long long)(t + u) * K1_TILE + lane0));
   }
-  int total;
-  int trues_before = block_exclusive_scan(c, &total, smem) +
-                     offsets[blockIdx.x];
-  const int nt = *n_true;
+  mine = __reduce_add_sync(0xffffffffu, mine);
+  if (lane == 0) s_red[0][warp] = mine;
+  __syncthreads();
+  int count = 0;
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    long long i = base + j;
-    if (i >= n) break;
-    if (m[j]) {
-      out[trues_before] = (int)i;
-      ++trues_before;
-    } else {
-      out[nt + (int)i - trues_before] = (int)i;
+  for (int w = 0; w < WARPS; ++w) count += s_red[0][w];
+
+  // trues before this block, and in all
+  int before = 0, n_true = count;
+  if (gridDim.x > 1) {
+    volatile unsigned long long* st = a.status;
+    if (threadIdx.x == 0)
+      st[blockIdx.x] = ((unsigned long long)a.epoch << 32) | (unsigned)count;
+    int b_sum = 0, t_sum = 0;
+    for (int j = threadIdx.x; j < (int)gridDim.x; j += THREADS) {
+      unsigned long long v;
+      do {
+        v = st[j];
+      } while ((unsigned)(v >> 32) != a.epoch);
+      const int c = (int)(unsigned)v;
+      t_sum += c;
+      if (j < (int)blockIdx.x) b_sum += c;
     }
+    b_sum = __reduce_add_sync(0xffffffffu, b_sum);
+    t_sum = __reduce_add_sync(0xffffffffu, t_sum);
+    __syncthreads();  // s_red[0] was read above
+    if (lane == 0) {
+      s_red[0][warp] = b_sum;
+      s_red[1][warp] = t_sum;
+    }
+    __syncthreads();
+    n_true = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      before += s_red[0][w];
+      n_true += s_red[1][w];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.n_true = n_true;
+
+  // rows before the block's first tile, and the falses among them
+  int true_base = before;
+  int false_base =
+      (int)max(0ll, (long long)t0 * K1_TILE - a.head) - before;
+  // the next tile's chunk is loaded while this one is ranked and written
+  uint4 ahead = t0 + 1 < t1 ? load_chunk(a, c_first + K1_TILE)
+                            : make_uint4(0u, 0u, 0u, 0u);
+  for (int t = t0; t < t1; ++t) {
+    const long long c = (long long)t * K1_TILE + lane0;
+    const unsigned valid = valid_bits(a, c);
+    unsigned trues = first_bits;
+    if (t > t0) {
+      trues = true_bits(ahead) & valid;
+      if (t + 1 < t1) ahead = load_chunk(a, c + K1_TILE);
+    }
+    // (valid rows << 16 | true rows) before this thread, and in the tile
+    int total;
+    const int excl = block_exclusive_scan(
+        (__popc(valid) << 16) | __popc(trues), &total, scan_smem);
+    const int tile_trues = total & 0xffff, tile_rows = total >> 16;
+    int ti = excl & 0xffff;
+    int fi = tile_trues + (excl >> 16) - ti;
+    const int row0 = (int)(c - a.head);
+#pragma unroll
+    for (int k = 0; k < K1_VEC; ++k) {
+      if (!((valid >> k) & 1u)) continue;
+      if ((trues >> k) & 1u)
+        s_rows[ti++] = row0 + k;
+      else
+        s_rows[fi++] = row0 + k;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < tile_rows; j += THREADS)
+      a.out[j < tile_trues ? true_base + j
+                           : n_true + false_base + (j - tile_trues)] =
+          s_rows[j];
+    true_base += tile_trues;
+    false_base += tile_rows - tile_trues;
+    __syncthreads();  // s_rows is rewritten by the next tile
   }
 }
 
@@ -547,25 +595,59 @@ K2Layout k2_layout(int n, int nkeys, const int* widths) {
 
 extern "C" {
 
-int srt_k1_scratch_ints(int n) {
-  const int nb = cdiv(n, TILE);
-  return nb + scan_scratch_ints(nb);
-}
+// Bytes of K1's scratch, whatever n: the blocks' status words, then
+// n_true. Zeroed once when allocated; calls tag their words with a new
+// epoch each, so it is never cleared again.
+size_t srt_k1_scratch_bytes() { return (size_t)K1_MAX_BLOCKS * 8 + 8; }
 
-// mask: n bytes (0/1); out: int32[n]; scratch: srt_k1_scratch_ints(n) ints
+// mask: n bytes (0/1); out: int32[n]; scratch: srt_k1_scratch_bytes()
+// bytes, used by one stream at a time; epoch: 1 + the number of earlier
+// calls on this scratch (below 2^32); n_true_host: pinned host int32 that
+// receives the true count, or null for none. One kernel launch (plus one
+// 4-byte device-to-host copy when n_true_host is given); the caller
+// synchronises the stream before it reads *n_true_host.
 int srt_k1_partition_order(const void* mask, int n, void* out,
-                           void* scratch, void* stream) {
+                           void* scratch, unsigned epoch, void* n_true_host,
+                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
-  const int nb = cdiv(n, TILE);
-  int* counts = (int*)scratch;
-  int* scan_scratch = counts + nb;
-  int* n_true = scan_scratch + cdiv(nb, TILE);
-  k1_count<<<nb, THREADS, 0, s>>>((const uint8_t*)mask, n, counts);
-  device_exclusive_scan(counts, nb, scan_scratch, s);
-  k1_scatter<<<nb, THREADS, 0, s>>>((const uint8_t*)mask, n, counts, n_true,
-                                    (int*)out);
-  return (int)cudaGetLastError();
+  // per device, once: how many blocks can be resident at a time
+  static int resident_of[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& resident = resident_of[dev & 63];
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k1_partition,
+                                                  THREADS, 0);
+    resident = std::min(sms * per_sm, K1_MAX_BLOCKS);
+    if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  K1Args a;
+  a.head = (int)((uintptr_t)mask & 15u);
+  a.chunks = (const uint8_t*)mask - a.head;
+  a.n = n;
+  a.out = (int*)out;
+  a.status = (unsigned long long*)scratch;
+  a.epoch = epoch;
+  a.n_true = (int*)((char*)scratch + (size_t)K1_MAX_BLOCKS * 8);
+  const int ntiles = cdiv((long long)a.head + n, K1_TILE);
+  const int grid = std::min(ntiles, resident);
+  cudaError_t err;
+  if (grid == 1) {
+    k1_partition<<<1, THREADS, 0, s>>>(a);
+    err = cudaGetLastError();
+  } else {
+    void* args[] = {&a};
+    err = cudaLaunchCooperativeKernel((const void*)k1_partition, grid,
+                                      THREADS, args, 0, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (n_true_host)
+    err = cudaMemcpyAsync(n_true_host, a.n_true, 4, cudaMemcpyDeviceToHost,
+                          s);
+  return (int)err;
 }
 
 size_t srt_k2_scratch_bytes(int n, int nkeys, const int* widths) {

@@ -131,5 +131,5 @@ def probe(table: ProbeTable, h_p: torch.Tensor):
         table.sb_h.data_ptr(), table.sb_h.shape[0], table.part.data_ptr(),
         table.table_bits, h_p.data_ptr(), n, lo.data_ptr(), cnt.data_ptr(),
         nk.stream_handle(h_p.device)), "probe")
-    nk.LAUNCHES["probe"] += 1
+    nk.count_launch("probe", n)
     return lo, cnt

@@ -3,9 +3,14 @@
 ``partition_order`` replaces spark_rapids_tpu/native/kernels/sort.py
 ``partition_order``: the stable permutation with mask-true rows first,
 bit-equal to ``argsort(~mask, stable=True)``. On the card it is bound by
-bytes (1 B read, 4 B written per row); ``csrc/sort.cu`` answers it with
-one counting pass, a scan of per-tile counts and one scatter pass, so
-every row is read twice and written once.
+bytes (1 B read, 4 B written per row) and, at one scan batch, by its
+launch; ``csrc/sort.cu`` makes one launch of co-resident blocks that
+count their trues, wait for each other's counts and write each tile's
+trues and falses as two contiguous runs. The kernel knows the true count,
+so ``partition_order_count`` hands it back with the permutation and the
+callers launch no reduction of their own. Its scratch (status words
+tagged with a per-call epoch, so never cleared again) is kept per device
+and stream.
 
 ``radix_order`` replaces ``radix_order`` of the same file: a stable
 ascending argsort of integral keys, most significant first, over their
@@ -24,7 +29,8 @@ arithmetic in PyTorch and are what the card's results are held against.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,9 +40,7 @@ from spark_rapids_tpu_torch.columnar import dtypes as dt
 # -- K1 ----------------------------------------------------------------------
 
 
-def partition_order_plain(mask: torch.Tensor) -> torch.Tensor:
-    """One prefix scan plus a scatter: a true row lands at its true-rank,
-    a false row after every true row at its false-rank."""
+def _partition_plain(mask: torch.Tensor):
     n = mask.shape[0]
     iota = torch.arange(n, dtype=torch.int64, device=mask.device)
     cs = torch.cumsum(mask.to(torch.int64), 0)
@@ -44,7 +48,51 @@ def partition_order_plain(mask: torch.Tensor) -> torch.Tensor:
     pos = torch.where(mask, cs - 1, n_true + iota - cs)
     out = torch.empty(n, dtype=torch.int32, device=mask.device)
     out[pos] = iota.to(torch.int32)
-    return out
+    return out, n_true
+
+
+def partition_order_plain(mask: torch.Tensor) -> torch.Tensor:
+    """One prefix scan plus a scatter: a true row lands at its true-rank,
+    a false row after every true row at its false-rank."""
+    return _partition_plain(mask)[0]
+
+
+#: (device index, stream handle) -> [status scratch, pinned count, epoch]
+_K1_SCRATCH: Dict[Tuple[int, int], list] = {}
+#: held from a call's epoch to its count read, so threads sharing a
+#: stream neither reuse an epoch nor overwrite each other's count
+_K1_LOCK = threading.Lock()
+
+
+def _partition_kernel(mask: torch.Tensor, want_count: bool):
+    mask = mask.contiguous()
+    nk.require_cuda("partition_order", [mask])
+    n = mask.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=mask.device)
+    if n == 0:
+        return out, 0
+    lib = nk.load("sort")
+    stream = nk.stream_handle(mask.device)
+    key = (mask.device.index, stream)
+    with _K1_LOCK:
+        scratch = _K1_SCRATCH.get(key)
+        if scratch is None or scratch[2] >= 0xFFFFFFFF:  # new, or spent
+            scratch = [torch.zeros(lib.srt_k1_scratch_bytes(),
+                                   dtype=torch.uint8, device=mask.device),
+                       torch.zeros(1, dtype=torch.int32, pin_memory=True),
+                       0]
+            _K1_SCRATCH[key] = scratch
+        scratch[2] += 1
+        count = scratch[1]
+        nk.check(lib.srt_k1_partition_order(
+            mask.data_ptr(), n, out.data_ptr(), scratch[0].data_ptr(),
+            scratch[2], count.data_ptr() if want_count else None, stream),
+            "partition_order")
+        nk.count_launch("partition_order", n)
+        if not want_count:
+            return out, None
+        torch.cuda.current_stream(mask.device).synchronize()
+        return out, int(count[0])
 
 
 def partition_order(mask: torch.Tensor) -> torch.Tensor:
@@ -53,20 +101,19 @@ def partition_order(mask: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"partition_order: mask dtype {mask.dtype}")
     if not mask.is_cuda:
         return partition_order_plain(mask)
-    mask = mask.contiguous()
-    nk.require_cuda("partition_order", [mask])
-    n = mask.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=mask.device)
-    if n == 0:
-        return out
-    lib = nk.load("sort")
-    scratch = torch.empty(lib.srt_k1_scratch_ints(n), dtype=torch.int32,
-                          device=mask.device)
-    nk.check(lib.srt_k1_partition_order(
-        mask.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
-        nk.stream_handle(mask.device)), "partition_order")
-    nk.LAUNCHES["partition_order"] += 1
-    return out
+    return _partition_kernel(mask, False)[0]
+
+
+def partition_order_count(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``partition_order(mask)`` and the number of true rows, from one
+    launch on the card (the count reaches the host with one 4-byte copy
+    and one stream synchronisation)."""
+    if mask.dtype != torch.bool:
+        raise TypeError(f"partition_order: mask dtype {mask.dtype}")
+    if not mask.is_cuda:
+        out, n_true = _partition_plain(mask)
+        return out, int(n_true)
+    return _partition_kernel(mask, True)
 
 
 # -- K2 ----------------------------------------------------------------------
@@ -157,7 +204,7 @@ def radix_order(keys: Sequence[torch.Tensor],
     nk.check(lib.srt_k2_radix_order(
         m, ptrs, codes, wid, n, out.data_ptr(), scratch.data_ptr(),
         nk.stream_handle(keys[0].device)), "radix_order")
-    nk.LAUNCHES["radix_order"] += 1
+    nk.count_launch("radix_order", n)
     return out
 
 

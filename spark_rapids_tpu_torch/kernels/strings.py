@@ -11,9 +11,12 @@ column.
 
 ``match_table`` replaces spark_rapids_tpu/native/kernels/strings.py
 ``_match_table``: one bool per entry for starts / ends / contains. It is
-bound by the table's bytes; ``csrc/strings.cu`` runs one thread per entry
-with the needle in shared memory, and, unlike the TPU kernel, builds no
-window tensor, so ``contains`` has no size budget.
+bound by the table's bytes; ``csrc/strings.cu`` takes the needle by value
+in the launch's parameters (no copy to the card per call), reads rows
+with 16-byte loads (a thread per row up to 64 bytes, a group of lanes per
+row past that), and answers ``contains`` in one shift-and pass per row
+for needles up to 64 bytes. Unlike the TPU kernel it builds no window
+tensor, so ``contains`` has no size budget.
 
 ``like_table`` replaces ``_like_table`` (same file): SQL LIKE per entry,
 greedy over the pattern's ``%``-separated segments (exact for segments
@@ -155,13 +158,14 @@ def match_table(chars: torch.Tensor, lens: torch.Tensor, kind: str,
     out = torch.empty(n, dtype=torch.bool, device=chars.device)
     if n == 0:
         return out
-    nd = torch.tensor(list(needle), dtype=torch.uint8, device=chars.device)
+    if chars.data_ptr() % 16:  # the kernel reads rows 16 bytes at a time
+        chars = chars.clone()
     lib = nk.load("strings")
     nk.check(lib.srt_k4_match_table(
-        chars.data_ptr(), lens.data_ptr(), n, L, nd.data_ptr(), m,
+        chars.data_ptr(), lens.data_ptr(), n, L, bytes(needle), m,
         KINDS[kind], out.data_ptr(), nk.stream_handle(chars.device)),
         "match_table")
-    nk.LAUNCHES["match_table"] += 1
+    nk.count_launch("match_table", n)
     return out
 
 
@@ -317,7 +321,7 @@ def like_table(chars: torch.Tensor, lens: torch.Tensor, pattern: str,
         chars.data_ptr(), lens.data_ptr(), n, L, spec.data_ptr(),
         len(modes), len(body), -1 if exact is None else exact,
         out.data_ptr(), nk.stream_handle(chars.device)), "like_table")
-    nk.LAUNCHES["like_table"] += 1
+    nk.count_launch("like_table", n)
     return out
 
 
@@ -367,7 +371,7 @@ def substring_table(chars: torch.Tensor, lens: torch.Tensor, pos: int,
         0 if length is None else int(length), int(length is not None),
         out.data_ptr(), out_lens.data_ptr(),
         nk.stream_handle(chars.device)), "substring")
-    nk.LAUNCHES["substring"] += 1
+    nk.count_launch("substring", n)
     return out, out_lens
 
 

@@ -18,6 +18,5 @@ def compact_batch(batch: ColumnarBatch, keep: torch.Tensor,
     rows whose predicate is null)."""
     if keep_validity is not None:
         keep = keep & keep_validity
-    order = ksort.partition_order(keep)
-    n_keep = int(keep.sum())
+    order, n_keep = ksort.partition_order_count(keep)
     return batch.gather(order[:n_keep])

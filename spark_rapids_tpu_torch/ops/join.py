@@ -143,8 +143,7 @@ def _emit(stream: ColumnarBatch, build: ColumnarBatch, stream_types,
                               device=match.device)
         matched[pi[match]] = True
         return compact_batch(stream, ~matched), list(stream_types)
-    order = ksort.partition_order(match)
-    n_match = int(match.sum())
+    order, n_match = ksort.partition_order_count(match)
     sel = order[:n_match]
     pi_s, bi_s = pi[sel], bi[sel]
     cols = [c.gather(pi_s) for c in stream.columns] + \

@@ -48,6 +48,18 @@ def canonicalize_floats(x: torch.Tensor) -> torch.Tensor:
                                   device=x.device), x)
 
 
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal floats -> a zero of the same sign; zeros, normal values,
+    infinities and NaN unchanged, and integer tensors returned as they
+    are. The reference's XLA backends treat the float operands and
+    results of comparisons and arithmetic so (``-1e-310 * 2.0`` is
+    ``-0.0``, ``1e-310 = 0.0`` holds), and the expressions flush with
+    this helper to agree with them."""
+    if not x.is_floating_point():
+        return x
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, x * 0, x)
+
+
 def sort_key_arrays(data: torch.Tensor, validity: Optional[torch.Tensor],
                     dtype: dt.DType, spec: SortKeySpec) -> List[torch.Tensor]:
     """Key arrays for one ORDER BY term, most significant first."""

@@ -17,8 +17,9 @@ from spark_rapids_tpu_torch.kernels import join as kjoin  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as ksort  # noqa: E402
 from spark_rapids_tpu_torch.kernels import strings as kstr  # noqa: E402
 
-# sizes around the kernels' tiles (2048 rows for the partition kernel,
-# 3072 for a radix pass, 1024 probe rows for a probe block)
+# sizes around the kernels' tiles (3072 rows for a radix pass, 1024 probe
+# rows for a probe block; the partition kernel's 4096-row tiles have
+# their own sizes below)
 _SIZES = (0, 1, 2047, 2049, 4097, 100_003)
 _I64 = (-2**63, 2**63 - 1)
 
@@ -38,6 +39,35 @@ def test_partition_order_kernel_equals_plain(n):
         m = torch.from_numpy(r.random(n) < p).to(dev)
         assert torch.equal(ksort.partition_order(m),
                            ksort.partition_order_plain(m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 4095, 4096, 4097, 100_003, 3_000_017))
+def test_partition_order_kernel_one_launch_with_count(n):
+    """Around the 4096-row tile, one block and many; masks all true, all
+    false, alternating and random, starting on and off a 16-byte
+    boundary; two calls queued back to back on one stream (stale status
+    words of the first must not feed the second), then the count."""
+    dev = _card()
+    r = np.random.default_rng(n)
+    masks = {"true": np.ones(n, bool), "false": np.zeros(n, bool),
+             "alternating": np.arange(n) % 2 == 0,
+             "random": r.random(n) < 0.3}
+    for name, m in masks.items():
+        whole = torch.from_numpy(m).to(dev)
+        for offset in (0, 3):
+            mask = whole[offset:]
+            if mask.numel() == 0:
+                continue
+            want = ksort.partition_order_plain(mask)
+            before = nk.LAUNCHES["partition_order"]
+            first = ksort.partition_order(mask)
+            second = ksort.partition_order(mask)
+            got, n_true = ksort.partition_order_count(mask)
+            assert nk.LAUNCHES["partition_order"] == before + 3
+            for out in (first, second, got):
+                assert torch.equal(out, want), (name, offset)
+            assert n_true == int(mask.sum()), (name, offset)
 
 
 @pytest.mark.cuda
@@ -210,6 +240,45 @@ def test_match_table_kernel_equals_plain(n, kind):
                                if 0 < len(nb) <= chars.shape[1] else
                                kstr.match_table(chars.cpu(), lens.cpu(),
                                                 kind, nb).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", (1, 16, 64, 512))
+@pytest.mark.parametrize("kind", ["starts", "ends", "contains"])
+def test_match_table_kernel_equals_plain_at_widths(L, kind):
+    """Each path of the kernel (a row a thread up to 64 bytes, a group of
+    lanes past that; shift-and up to 64-byte needles, windows past that)
+    at needle lengths 1, 63, 64, 65 and L, over bytes that include 0 and
+    non-ASCII ones, with entries shorter than the needle. Every needle
+    holds a 0 byte, and is planted in every fifth entry long enough."""
+    dev = _card()
+    r = np.random.default_rng(L)
+    n = 3000
+    alphabet = np.array([0x61, 0x62, 0x00, 0xC3, 0xA9], np.uint8)
+    lens = r.integers(0, L + 1, n)
+    base = alphabet[r.integers(0, len(alphabet), (n, L))]
+    for m in sorted({1, 63, 64, 65, L}):
+        if m > L:
+            continue
+        needle = alphabet[r.integers(0, len(alphabet), m)]
+        needle[m // 2] = 0
+        chars = base.copy()
+        for i in range(0, n, 5):
+            if lens[i] >= m:
+                at = {"starts": 0, "ends": lens[i] - m}.get(
+                    kind, int(r.integers(0, lens[i] - m + 1)))
+                chars[i, at:at + m] = needle
+        chars[np.arange(L)[None, :] >= lens[:, None]] = 0
+        tc = torch.from_numpy(chars).to(dev)
+        tl = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        nb = needle.tobytes()
+        got = kstr.match_table(tc, tl, kind, nb)
+        want = kstr.match_table_plain(tc, tl, kind, nb)
+        assert torch.equal(got, want), m
+        assert bool(want.any()) or m > int(lens.max()), m
+        # a table that starts off a 16-byte boundary (L = 1 only)
+        got = kstr.match_table(tc[1:], tl[1:], kind, nb)
+        assert torch.equal(got, want[1:]), m
 
 
 @pytest.mark.cuda

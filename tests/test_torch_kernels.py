@@ -57,6 +57,9 @@ def test_partition_order_plain_matches_reference(mask):
     got = ksort.partition_order(torch.from_numpy(mask)).numpy()
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
+    order, n_true = ksort.partition_order_count(torch.from_numpy(mask))
+    np.testing.assert_array_equal(order.numpy(), want)
+    assert n_true == int(mask.sum())
 
 
 # -- K2 ----------------------------------------------------------------------

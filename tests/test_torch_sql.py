@@ -334,6 +334,96 @@ def test_join_condition_only_on_inner_joins():
         apply_overrides(node, device="cpu")
 
 
+# -- subnormal floats ------------------------------------------------------------
+
+# The reference's XLA backend counts a subnormal operand or result of a
+# comparison or of arithmetic as a zero of its sign, except where XLA
+# folds the operation away before it runs (a literal identity or
+# negation, two literals). -0.0 and NaN ride along to show that they
+# keep their behaviour.
+
+_SUBNORMAL_SHAPES = {
+    "eq": ("SELECT i FROM t WHERE d = 0.0", False),
+    "gt": ("SELECT i FROM t WHERE d > 0.0", False),
+    "lt": ("SELECT i FROM t WHERE d < 0.0", False),
+    "ge": ("SELECT i FROM t WHERE d >= 0.0", False),
+    "le": ("SELECT i FROM t WHERE d <= 0.0", False),
+    "ne": ("SELECT i FROM t WHERE d <> 0.0", False),
+    "in": ("SELECT i FROM t WHERE d IN (0.0, 1.5)", False),
+    "between": ("SELECT i FROM t WHERE d BETWEEN 0.0 AND 1.0", False),
+    "eq_subnormal_literal": ("SELECT i FROM t WHERE d = 1e-310", False),
+    "div_column": ("SELECT i, d / i AS q FROM t", False),
+    "div_by_subnormal": ("SELECT i, 1.0 / d AS q FROM t", False),
+    "mul_two": ("SELECT i, d * 2.0 AS q FROM t", False),
+    "mul_tiny": ("SELECT i, d * 1e-10 AS q FROM t", False),
+    "mul_column": ("SELECT i, d * i AS q FROM t", False),
+    "add_self": ("SELECT i, d + d AS q FROM t", False),
+    "sub_self": ("SELECT i, d - d AS q FROM t", False),
+    "zero_minus": ("SELECT i, 0.0 - d AS q FROM t", False),
+    "mul_one": ("SELECT i, d * 1.0 AS q FROM t", False),
+    "one_mul": ("SELECT i, 1.0 * d AS q FROM t", False),
+    "add_zero": ("SELECT i, d + 0.0 AS q FROM t", False),
+    "zero_add": ("SELECT i, 0.0 + d AS q FROM t", False),
+    "sub_zero": ("SELECT i, d - 0.0 AS q FROM t", False),
+    "add_negative_zero": ("SELECT i, d + -0.0 AS q FROM t", False),
+    "div_one": ("SELECT i, d / 1.0 AS q FROM t", False),
+    "mul_int_one": ("SELECT i, d * 1 AS q FROM t", False),
+    "mul_minus_one": ("SELECT i, d * -1.0 AS q FROM t", False),
+    "minus_one_mul": ("SELECT i, -1.0 * d AS q FROM t", False),
+    "div_minus_one": ("SELECT i, d / -1.0 AS q FROM t", False),
+    "identity_then_mul": ("SELECT i, d * 1.0 * 2.0 AS q FROM t", False),
+    "identity_then_compare": ("SELECT i FROM t WHERE d * 1.0 > 0.0", False),
+    "select": ("SELECT i, d FROM t", False),
+    "sum": ("SELECT sum(d) AS s FROM t", True),
+    "group_by": ("SELECT d, count(*) AS n FROM t GROUP BY d", False),
+    "order_by": ("SELECT i, d FROM t ORDER BY d, i", True),
+    "join": ("SELECT t.i, z.z FROM t JOIN z ON t.d = z.z", False),
+}
+
+
+@pytest.fixture(scope="module")
+def subnormal_sessions():
+    """One reference and one port session over the same two tables."""
+    t = {"d": np.array([1e-310, 0.0, 1.5, -1e-310, 1e-300, -0.0,
+                        float("nan")]),
+         "i": np.array([-3, 1, 2, 5, 7, 11, 13], dtype=np.int64)}
+    z = {"z": np.array([0.0, 1.5])}
+    rs = RSession()
+    s = Session(device="cpu")
+    for name, cols in (("t", t), ("z", z)):
+        rs.create_temp_view(name, rpn.InMemorySource(dict(cols)))
+        s.create_temp_view(name, pn.InMemorySource(dict(cols)))
+    return rs, s
+
+
+def _exact_rows(columns, ordered: bool):
+    """Rows with every float as its bit pattern (one token for NaN), so
+    -0.0 against 0.0 and 1e-320 against 0.0 differ."""
+    def cell(x):
+        if x is None:
+            return ("null",)
+        if isinstance(x, (float, np.floating)):
+            x = float(x)
+            return ("nan",) if np.isnan(x) else \
+                ("f", int(np.float64(x).view(np.int64)))
+        return ("v", int(x))
+    rows = list(zip(*[[cell(x) for x in c] for c in columns]))
+    return rows if ordered else sorted(rows)
+
+
+@pytest.mark.parametrize("shape", sorted(_SUBNORMAL_SHAPES))
+def test_subnormal_floats_match_reference_engine_bit_for_bit(
+        subnormal_sessions, shape):
+    text, ordered = _SUBNORMAL_SHAPES[shape]
+    rs, s = subnormal_sessions
+    want = rs.sql(text).collect()
+    got = s.sql(text).collect()
+    assert list(got) == list(want.columns)
+    assert _exact_rows([list(got[n]) for n in got], ordered) == \
+        _exact_rows([want[n].to_numpy().tolist() for n in want.columns],
+                    ordered)
+
+
 # -- q91 -----------------------------------------------------------------------
 
 

@@ -17,6 +17,8 @@ gives every batch its own string dictionaries.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -78,7 +80,10 @@ def test_generators_match_reference(table, chunked):
     _assert_columns_equal(got, want, columns)
 
 
+@functools.lru_cache(maxsize=None)
 def _tables(orders_fraction=1.0):
+    """The generated tables, made once per fraction (the queries read
+    them and change nothing)."""
     orders = datagen.gen_orders(SF)
     n = int(len(orders["o_custkey"]) * orders_fraction)
     return {"lineitem": datagen.gen_lineitem(SF),
