@@ -5,6 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --strings`` runs phases 1-2 and the LIKE and
+substring cases of phase 3 alone, with the package beside the script, so
+a copy of the script in another tree of the port times that tree's
+kernels at the same cases (it prints no ``ok`` line).
+
 Phases, each of which fails the run (nonzero exit, no ``ok`` line):
 
 1. the card: ``nvidia-smi`` name and power limit, the torch device name;
@@ -29,12 +34,18 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    c_phone dictionary and over a table of pos / length edges; TPC-DS q91:
    the LIKE table over household_demographics' hd_buy_potential, then
    over the sf-10 c_phone dictionary and the 1M-entry table with the
-   reference's test patterns and patterns past its budget). Results
-   must be equal; times come from CUDA events over warmed repeated
-   launches, beside the bytes bound at 3.35 TB/s and, where one exists,
-   one PyTorch library call computing the same function; the partition
-   and match-table kernels also give their device time alone
+   reference's test patterns and patterns past its budget, then at
+   every width from 1 to 512 with each anchoring, '_' at segment edges,
+   escapes and a body past 64 bytes; substring's pos / length edges at
+   widths 8, 16, 32, 64 and 512). Results must be equal; times come
+   from CUDA events over warmed repeated launches, beside the bytes
+   bound at 3.35 TB/s and, where one exists, one PyTorch library call
+   computing the same function; the partition, match-table, LIKE and
+   substring kernels also give their device time alone
    (``torch.profiler``, kernel durations only) beside the wrapper's;
+   then the fused multiply-add (C3): three float expressions over 4,096
+   seeded rows through the SQL front end, each bit-equal to a * b + c
+   rounded once (computed exactly on the host);
 4. the q5lite step: 4M rows, 65,536 keys, seed 7, against a numpy
    oracle (groups, keys and counts exact, sums within 1e-9 relative);
 5. TPCx-BB q26 at sf 10 (store_sales 28.8M rows, item 180k, 1M
@@ -159,7 +170,8 @@ def phase_build(nk):
           f"{', '.join(s + '.cu' for s in nk.SOURCES)}")
     for stem in nk.SOURCES:
         for line in nk.PTXAS_REPORT.get(stem, "").splitlines():
-            if "Compiling entry" in line or "Used" in line:
+            if "Compiling entry" in line or "Used" in line or \
+                    "stack frame" in line:
                 print(f"ptxas {stem}: {line.strip()}")
 
 
@@ -385,6 +397,35 @@ def _string_table(dic, dev):
     return _to_dev(chars, dev), _to_dev(lens, dev)
 
 
+def _substring_bytes(lens, L, pos, length):
+    """Bytes substring must move: per entry the aligned chunks (16 bytes,
+    or the row below L = 16) that cover the slice it outputs, the
+    lengths read, and the whole output table and its lengths written."""
+    import torch
+
+    lv = lens.to(torch.int64)
+    start = torch.full_like(lv, pos - 1) if pos > 0 else \
+        lv + pos if pos < 0 else torch.zeros_like(lv)
+    end = lv if length is None else start + length
+    start_c = torch.minimum(start.clamp(min=0), lv)
+    out_len = (torch.minimum(end, lv).clamp(min=0) - start_c).clamp(min=0)
+    c = min(16, L)
+    chunks = torch.where(out_len > 0, (start_c + out_len + c - 1) // c -
+                         start_c // c, torch.zeros_like(lv))
+    n = lv.numel()
+    return int(chunks.sum()) * c + n * 4 + n * L + n * 4
+
+
+def _like_bytes(lens, L):
+    """Bytes LIKE must move: per entry its 16-byte chunks below its
+    length (the row, below L = 16), the lengths read and one byte out."""
+    import torch
+
+    lv = lens.to(torch.int64)
+    return int(torch.minimum((lv + 15) // 16 * 16,
+                             torch.full_like(lv, L)).sum()) + lv.numel() * 5
+
+
 def phase_string_kernels(dev, part, customer):
     """K4 and K6 against their plain versions at q14's and q22's shapes
     and past the reference's limits. Returns name -> record of the main
@@ -420,7 +461,8 @@ def phase_string_kernels(dev, part, customer):
         print(json.dumps(rec))
         k4.append(rec)
 
-    def k6_case(label, chars, lens, pos, length, iters=50, show=True):
+    def k6_case(label, chars, lens, pos, length, iters=50, show=True,
+                dev_iters=20):
         n, L = chars.shape
         got = kstr.substring_table(chars, lens, pos, length)
         want = kstr.substring_table_plain(chars, lens, pos, length)
@@ -431,8 +473,14 @@ def phase_string_kernels(dev, part, customer):
                      iters),
             _time_ms(lambda: kstr.substring_table_plain(chars, lens, pos,
                                                         length), 3),
-            None, 2 * (n * L + n * 4), f"{label} substring({pos}, "
-            f"{length}) [{n}, {L}]", show=show)
+            None, _substring_bytes(lens, L, pos, length),
+            f"{label} substring({pos}, "
+            f"{length}) [{n}, {L}]", show=False)
+        rec["device_ms"] = _device_ms(
+            lambda: kstr.substring_table(chars, lens, pos, length), "k6_",
+            dev_iters)
+        if show:
+            print(json.dumps(rec))
         k6.append(rec)
 
     # q14: StartsWith(p_type, 'PROMO') over part's dictionary
@@ -474,25 +522,45 @@ def phase_string_kernels(dev, part, customer):
                      ("starts", "abc"), ("ends", "-d")):
         k4_case("wide", *wide, kind, nd)
     del wide
-    # q22: substring(c_phone, 1, 2), then the pos / length edges
+    # q22: substring(c_phone, 1, 2), then the pos / length edges at
+    # 100,000 x 32 and at L = 8, 16, 64 and 512 (a thread a row below 16
+    # bytes, a thread a 16-byte chunk from 16)
     k6_case("c_phone", *phone, 1, 2)
-    edge = (_to_dev(chars[:100_000, :32].copy(), dev),
-            _to_dev(np.minimum(lens[:100_000], 32), dev))
-    for pos in (-20, -3, 0, 1, 5, 40):
-        for length in (None, 0, -1, 2, 100):
-            k6_case("edges", *edge, pos, length, iters=5, show=False)
-    edges = k6[1:]
-    summary = {k: edges[0][k] for k in ("name", "bound_ms", "bound_by")}
-    summary.update(
-        shape=f"edges [{edge[0].shape[0]}, {edge[0].shape[1]}] x "
-        f"{len(edges)} (pos, length) cases", equal=True,
-        kernel_ms=max(c["kernel_ms"] for c in edges),
-        plain_ms=max(c["plain_ms"] for c in edges), library_ms=None)
-    print(json.dumps(summary))
+    summaries = []
+    widths = [("edges", chars[:100_000, :32], 32)]
+    for L6 in (8, 16, 64, 512):
+        widths.append((f"edges L={L6}", np.frombuffer(b"abcd-", np.uint8)[
+            r.integers(0, 5, (50_000, L6))], L6))
+    for label, base, L6 in widths:
+        lens6 = np.minimum(lens[:base.shape[0]], L6) if L6 == 32 else \
+            r.integers(0, L6 + 1, base.shape[0]).astype(np.int32)
+        base = base.copy()
+        base[np.arange(L6)[None, :] >= lens6[:, None]] = 0
+        edge = (_to_dev(base, dev), _to_dev(lens6, dev))
+        first = len(k6)
+        for pos in (-20, -3, 0, 1, 5, 40):
+            for length in (None, 0, -1, 2, 100):
+                k6_case(label, *edge, pos, length, iters=5, show=False,
+                        dev_iters=5)
+        edges = k6[first:]
+        # the wrapper's slowest case, and the case of the most device
+        # time with its own bound
+        slowest = max(edges, key=lambda c: c["kernel_ms"])
+        busiest = max(edges, key=lambda c: c["device_ms"] or 0.0)
+        summary = {k: busiest[k] for k in ("name", "bound_ms", "bound_by",
+                                           "device_ms")}
+        summary.update(
+            shape=f"{label} [{edge[0].shape[0]}, {edge[0].shape[1]}] x "
+            f"{len(edges)} (pos, length) cases", equal=True,
+            kernel_ms=slowest["kernel_ms"],
+            plain_ms=max(c["plain_ms"] for c in edges), library_ms=None,
+            slowest=slowest["shape"], busiest=busiest["shape"])
+        print(json.dumps(summary))
+        summaries.append(summary)
     torch.cuda.synchronize()
     recs = {"match_table": dict(k4[0]), "substring": dict(k6[0])}
     recs["match_table"]["cases"] = k4
-    recs["substring"]["cases"] = [k6[0], summary]
+    recs["substring"]["cases"] = [k6[0]] + summaries
     return recs, phone, seeded
 
 
@@ -515,6 +583,14 @@ def _like_ops(lens, pattern, escape):
     return ops
 
 
+def _body_bytes(pattern, escape):
+    """The bytes of a LIKE pattern's segments, '_' included."""
+    from spark_rapids_tpu_torch.kernels import strings as kstr
+
+    return sum(len(seg) for _, seg in
+               kstr.like_segments(kstr.parse_like(pattern, escape)))
+
+
 def phase_like_kernel(dev, hd, phone, seeded):
     """K5 against its plain version: q91's hd_buy_potential table, the
     sf-10 c_phone dictionary with the reference's test patterns and a
@@ -530,6 +606,8 @@ def phase_like_kernel(dev, hd, phone, seeded):
 
     def case(label, chars, lens, pattern, escape="\\", iters=50):
         n, L = chars.shape
+        shown = pattern if len(pattern) <= 24 else \
+            f"{pattern[:20]}... ({len(pattern)} chars)"
         ascii_only = bool((chars < 0x80).all())
         got = kstr.like_table(chars, lens, pattern, escape, ascii_only)
         want = kstr.like_table_plain(chars, lens, pattern, escape)
@@ -543,9 +621,13 @@ def phase_like_kernel(dev, hd, phone, seeded):
                                              ascii_only), iters),
             _time_ms(lambda: kstr.like_table_plain(chars, lens, pattern,
                                                    escape), 3),
-            None, n * L + n * 4 + n, f"{label} like {pattern!r} [{n}, {L}]",
+            None, _like_bytes(lens, L), f"{label} like {shown!r} [{n}, {L}]",
             ops=_like_ops(lens, pattern, escape), show=False)
+        rec["device_ms"] = _device_ms(
+            lambda: kstr.like_table(chars, lens, pattern, escape,
+                                    ascii_only), "k5_", min(iters, 20))
         rec["matches"] = int(got.sum())
+        rec["body_bytes"] = _body_bytes(pattern, escape)
         rec["past_window_budget"] = budget > WINDOW_BUDGET
         print(json.dumps(rec))
         cases.append(rec)
@@ -562,9 +644,88 @@ def phase_like_kernel(dev, hd, phone, seeded):
         case("seeded", *seeded, pattern, iters=20)
     if not cases[-1]["past_window_budget"]:
         raise AssertionError("the last pattern must pass the budget")
+    # every path of the kernel at every width the encoder gives: a body
+    # past the 64 bytes of the shift-and path, each anchoring, '_' at the
+    # edges of segments, an escaped '%' and '_', over rows of a-d, '-',
+    # '%' and '_' with every ninth one planted with a match of the
+    # pattern's literal form
+    r = np.random.default_rng(5)
+    alphabet = np.frombuffer(b"abcd-%_", np.uint8)
+    first_width, summaries = len(cases), []
+    for L in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512):
+        n = 20_000
+        lens = r.integers(0, L + 1, n).astype(np.int32)
+        chars = alphabet[r.integers(0, len(alphabet), (n, L))]
+        patterns = ["a%", "%a", "_%", "%_", "a_%_b", "%_a%b_%", "ab%cd",
+                    "%a%b%a%", "%d\\%%", "%\\_a%", "_a%\\%_",
+                    "%" + "ab" * 16 + "%", "%" + "a_c-" * 12,
+                    "ab%" + "cd-" * 23 + "%", "%" + "abcd_" * 20 + "%",
+                    "a" * L, "_" * L]
+        for i in range(0, n, 9):
+            pat = patterns[(i // 9) % len(patterns)]
+            lit = pat.replace("\\", "").replace("%", "").replace("_", "a")
+            if 0 < len(lit) <= lens[i]:
+                chars[i, :len(lit)] = np.frombuffer(lit.encode(), np.uint8)
+        chars[np.arange(L)[None, :] >= lens[:, None]] = 0
+        table = (_to_dev(chars, dev), _to_dev(lens, dev))
+        first = len(cases)
+        for pattern in patterns:
+            if _body_bytes(pattern, "\\") <= L:
+                case(f"widths L={L}", *table, pattern, iters=5)
+        width = cases[first:]
+        slowest = max(width, key=lambda c: c["kernel_ms"])
+        busiest = max(width, key=lambda c: c["device_ms"] or 0.0)
+        summary = {k: busiest[k] for k in ("name", "bound_ms", "bound_by",
+                                           "device_ms")}
+        summary.update(
+            shape=f"widths [{n}, {L}] x {len(width)} patterns", equal=True,
+            kernel_ms=slowest["kernel_ms"],
+            plain_ms=max(c["plain_ms"] for c in width), library_ms=None,
+            slowest=slowest["shape"], busiest=busiest["shape"],
+            longest_body=max(c["body_bytes"] for c in width))
+        print(json.dumps(summary))
+        summaries.append(summary)
+    if not any(c["longest_body"] > 64 for c in summaries):
+        raise AssertionError("a body past 64 bytes must run")
     torch.cuda.synchronize()
     rec = dict(main)
-    rec["cases"] = cases
+    rec["cases"] = cases[:first_width] + summaries
+    return rec
+
+
+def phase_fma(dev):
+    """C3 on the card: float products that feed an add, through the SQL
+    front end (which folds each into one ``MultiplyAdd``), against a * b
+    + c rounded once, computed exactly on the host with fractions."""
+    from fractions import Fraction
+
+    import numpy as np
+
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.plan.nodes import InMemorySource
+
+    r = np.random.default_rng(3)
+    n = 4097
+    a, b, c = (r.standard_normal(n) * 10.0 ** r.integers(-3, 3, n)
+               for _ in range(3))
+    s = Session(device=dev)
+    s.create_temp_view("t", InMemorySource({"a": a, "b": b, "c": c}))
+    got = s.sql("SELECT a * b + c AS x, a * 0.3 - c AS y, 0.1 - a * b AS z "
+                "FROM t").collect()
+    fa, fb, fc = ([Fraction(float(v)) for v in x] for x in (a, b, c))
+    want = {"x": [p * q + o for p, q, o in zip(fa, fb, fc)],
+            "y": [p * Fraction(0.3) - o for p, o in zip(fa, fc)],
+            "z": [Fraction(0.1) - p * q for p, q in zip(fa, fb)]}
+    twice = {"x": a * b + c, "y": a * 0.3 - c, "z": 0.1 - a * b}
+    rec = {"phase": "fma", "rows": n, "exact": True, "twice_rounded_rows": {}}
+    for col, exact in want.items():
+        w = np.array([float(v) for v in exact])
+        g = np.asarray(got[col], np.float64)
+        if not np.array_equal(g.view(np.int64), w.view(np.int64)):
+            raise AssertionError(f"fma: {col} is not a * b + c rounded once "
+                                 f"({int((g != w).sum())} rows)")
+        rec["twice_rounded_rows"][col] = int((twice[col] != w).sum())
+    print(json.dumps(rec))
     return rec
 
 
@@ -795,6 +956,15 @@ def main() -> int:
               f"count {torch.cuda.device_count()}")
         phase = "build"
         phase_build(nk)
+        if sys.argv[1:] == ["--strings"]:
+            phase = "string kernels"
+            srecs, phone, seeded = phase_string_kernels(
+                dev, datagen.gen_part(SF), datagen.gen_customer(SF))
+            phase = "like kernel"
+            phase_like_kernel(dev, tpcds.gen_household_demographics(SF),
+                              phone, seeded)
+            print(_smi())
+            return 0
         phase = "data"
         t0 = time.perf_counter()
         ss = tpcds.gen_store_sales(SF)
@@ -820,6 +990,8 @@ def main() -> int:
         recs["like_table"] = phase_like_kernel(
             dev, q91_tables["household_demographics"], phone, seeded)
         del seeded
+        phase = "fma"
+        phase_fma(dev)
         phase = "q5lite"
         phase_q5lite(dev)
         phase = "q26"

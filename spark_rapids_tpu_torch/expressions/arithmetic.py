@@ -6,16 +6,13 @@ always yields a double; integer overflow wraps.
 Float arithmetic follows the reference's XLA backends on subnormals: an
 operand and a result that are subnormal count as a zero of their sign
 (``ops.sortkeys.flush_subnormals``), so ``1e-310 * 2.0`` is ``0.0`` and
-``1.0 / 1e-310`` divides by zero (null). What XLA folds away before it
-runs keeps its value unflushed: two literals are computed as they are,
-and a literal that makes the operation an identity returns the other
-side untouched (``x + 0.0``, ``0.0 + x``, ``x - 0.0``, ``x * 1.0``,
-``1.0 * x``, ``x / 1.0``; a zero of either sign) or negated (``x * -1.0``,
-``-1.0 * x``, ``x / -1.0``).
+``1.0 / 1e-310`` divides by zero (null). Two literals are computed as
+they are, as XLA's constant folder does. What XLA rewrites before it
+runs (literal chains, division by a literal, identities, fused
+multiply-adds) is rewritten once per plan by ``expressions.folding``,
+which makes the ``Identity`` and ``MultiplyAdd`` nodes below.
 """
 from __future__ import annotations
-
-from typing import Optional, Tuple
 
 import torch
 
@@ -32,34 +29,7 @@ def _scalar_result(t: dt.DType, x: torch.Tensor) -> Scalar:
     return Scalar(t, float(v) if t.is_floating else int(v))
 
 
-def _folded(a: EvalValue, b: EvalValue, kt: torch.dtype,
-            identity: Tuple, negation: Tuple, commutes: bool
-            ) -> Optional[torch.Tensor]:
-    """The column side of ``a op b``, untouched or negated, when the other
-    side is a literal that makes ``op`` an identity or a negation (XLA's
-    algebraic simplification); else None."""
-    if isinstance(b, Scalar):
-        column, literal = a, b.value
-    elif commutes and isinstance(a, Scalar):
-        column, literal = b, a.value
-    else:
-        return None
-    if isinstance(literal, bool):
-        return None
-    if literal in identity:
-        return column.data.to(kt)
-    if literal in negation:
-        return -column.data.to(kt)
-    return None
-
-
 class BinaryArithmetic(Expression):
-    #: literal values c with ``x op c`` == x, and with ``x op c`` == -x
-    identity: Tuple = ()
-    negation: Tuple = ()
-    #: whether ``c op x`` folds as ``x op c`` does
-    commutes = True
-
     def __init__(self, left: Expression, right: Expression):
         super().__init__([left, right])
 
@@ -86,64 +56,128 @@ class BinaryArithmetic(Expression):
         if not t.is_floating:
             return ColV(t, self.fn(operand(a).to(kt), operand(b).to(kt)),
                         validity)
-        data = _folded(a, b, kt, self.identity, self.negation, self.commutes)
-        if data is None:
-            data = flush_subnormals(self.fn(
-                flush_subnormals(operand(a).to(kt)),
-                flush_subnormals(operand(b).to(kt))))
+        data = flush_subnormals(self.fn(flush_subnormals(operand(a).to(kt)),
+                                        flush_subnormals(operand(b).to(kt))))
         return ColV(t, data, validity)
 
 
 class Add(BinaryArithmetic):
-    identity = (0,)
     fn = staticmethod(lambda a, b: a + b)
 
 
 class Subtract(BinaryArithmetic):
-    identity = (0,)
-    commutes = False
     fn = staticmethod(lambda a, b: a - b)
 
 
 class Multiply(BinaryArithmetic):
-    identity = (1,)
-    negation = (-1,)
     fn = staticmethod(lambda a, b: a * b)
 
 
 class Divide(Expression):
     """Spark Divide: a double result; x / 0 is null (the reference's
     ``_DivLike`` with a float64 quotient). A subnormal divisor counts as
-    zero."""
+    zero. ``Divide(a, b, c, ...)``, which ``expressions.folding`` makes
+    of ``(a / b) / c``, divides once by the product of the divisors, as
+    XLA computes it, and is null where any divisor is zero."""
 
-    def __init__(self, left: Expression, right: Expression):
-        super().__init__([left, right])
+    def __init__(self, left: Expression, *divisors: Expression):
+        super().__init__([left, *divisors])
 
     @property
     def dtype(self) -> dt.DType:
         return dt.FLOAT64
 
     def eval(self, ctx: EvalContext) -> EvalValue:
-        a = self.children[0].eval(ctx)
-        b = self.children[1].eval(ctx)
-        if (isinstance(a, Scalar) and a.is_null) or \
-                (isinstance(b, Scalar) and b.is_null):
+        vals = [c.eval(ctx) for c in self.children]
+        if any(isinstance(v, Scalar) and v.is_null for v in vals):
             return Scalar(dt.FLOAT64, None)
-        if isinstance(a, Scalar) and isinstance(b, Scalar):
-            if b.value == 0:
+        if all(isinstance(v, Scalar) for v in vals):
+            if any(v.value == 0 for v in vals[1:]):
                 return Scalar(dt.FLOAT64, None)
-            return _scalar_result(dt.FLOAT64, operand(a).to(torch.float64) /
-                                  operand(b).to(torch.float64))
-        validity = and_validity(value_validity(a), value_validity(b))
-        folded = _folded(a, b, torch.float64, (1,), (-1,), False)
-        if folded is not None:
-            return ColV(dt.FLOAT64, folded, validity)
-        ad = flush_subnormals(operand(a).to(torch.float64))
-        bd = flush_subnormals(operand(b).to(torch.float64))
-        nonzero = bd != 0
-        data = flush_subnormals(ad / torch.where(nonzero, bd,
-                                                 torch.ones_like(bd)))
-        n = ctx.num_rows
-        nonzero = nonzero.to(data.device).expand(n)
-        validity = nonzero if validity is None else validity & nonzero
-        return ColV(dt.FLOAT64, data.expand(n).contiguous(), validity)
+            q = operand(vals[0]).to(torch.float64)
+            for v in vals[1:]:
+                q = q / operand(v).to(torch.float64)
+            return _scalar_result(dt.FLOAT64, q)
+        validity = and_validity(*(value_validity(v) for v in vals))
+        divisor = None
+        for v in vals[1:]:
+            bd = flush_subnormals(operand(v).to(torch.float64))
+            nonzero = bd != 0
+            safe = torch.where(nonzero, bd, torch.ones_like(bd))
+            divisor = safe if divisor is None else \
+                flush_subnormals(divisor * safe)
+            nonzero = nonzero.to(ctx.device).expand(ctx.num_rows)
+            validity = nonzero if validity is None else validity & nonzero
+        data = flush_subnormals(
+            flush_subnormals(operand(vals[0]).to(torch.float64)) / divisor)
+        return ColV(dt.FLOAT64, data.expand(ctx.num_rows).contiguous(),
+                    validity)
+
+
+class Identity(Expression):
+    """What XLA leaves of ``x + 0`` and ``x * 1``: x converted to the
+    operation's type and untouched, subnormals and -0.0 included; with
+    ``negate``, what LLVM makes of ``x * -1`` and ``-0.0 - x``: -x."""
+
+    def __init__(self, child: Expression, dtype: dt.DType,
+                 negate: bool = False):
+        super().__init__([child])
+        self._dtype = dtype
+        self.negate = negate
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self._dtype
+
+    def eval(self, ctx: EvalContext) -> EvalValue:
+        v = self.children[0].eval(ctx)
+        if isinstance(v, Scalar) and v.is_null:
+            return Scalar(self._dtype, None)
+        data = operand(v).to(self._dtype.torch_dtype)
+        if self.negate:
+            data = -data
+        if isinstance(v, Scalar):
+            return _scalar_result(self._dtype, data)
+        return ColV(self._dtype, data, v.validity)
+
+
+class MultiplyAdd(Expression):
+    """``product_sign * a * b + addend_sign * c`` rounded once: the fused
+    multiply-add the reference's XLA backend makes of a float product
+    that feeds ``+`` or ``-``. Operands and the result count a subnormal
+    as a zero of its sign, as the separate operations do."""
+
+    def __init__(self, a: Expression, b: Expression, c: Expression,
+                 dtype: dt.DType, product_sign: int = 1,
+                 addend_sign: int = 1):
+        super().__init__([a, b, c])
+        self._dtype = dtype
+        self.product_sign = product_sign
+        self.addend_sign = addend_sign
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self._dtype
+
+    def eval(self, ctx: EvalContext) -> EvalValue:
+        vals = [c.eval(ctx) for c in self.children]
+        if any(isinstance(v, Scalar) and v.is_null for v in vals):
+            return Scalar(self._dtype, None)
+        kt = self._dtype.torch_dtype
+        # a literal as a 0-d tensor on the batch's device (addcmul takes
+        # no CPU scalar beside CUDA tensors)
+        a, b, c = (flush_subnormals(
+            torch.full((), v.value, dtype=kt, device=ctx.device)
+            if isinstance(v, Scalar) else v.data.to(kt)) for v in vals)
+        if self.addend_sign < 0:
+            c = -c
+        if self.product_sign < 0:
+            a = -a
+        # value=1 only: on the card (torch 2.11, CUDA 12.8) addcmul with
+        # value=-1 rounded a * b before the add, so an operand carries
+        # the sign (negation is exact)
+        data = flush_subnormals(torch.addcmul(c, a, b))
+        if all(isinstance(v, Scalar) for v in vals):
+            return _scalar_result(self._dtype, data)
+        validity = and_validity(*(value_validity(v) for v in vals))
+        return ColV(self._dtype, data, validity)

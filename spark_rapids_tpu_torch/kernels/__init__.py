@@ -148,8 +148,9 @@ def _declare(stem: str, lib: ctypes.CDLL) -> None:
         lib.srt_k4_match_table.argtypes = [_P, _P, _I, _I, ctypes.c_char_p,
                                            _I, _I, _P, _P]
         lib.srt_k4_match_table.restype = _I
-        lib.srt_k5_like_table.argtypes = [_P, _P, _I, _I, _P, _I, _I, _I, _P,
-                                          _P]
+        lib.srt_k5_like_table.argtypes = [
+            _P, _P, _I, _I, ctypes.c_char_p, ctypes.c_char_p, _I, _P, _I, _I,
+            _I, _I, _P, _P]
         lib.srt_k5_like_table.restype = _I
         lib.srt_k6_substring.argtypes = [_P, _P, _I, _I, _LL, _LL, _I, _P,
                                          _P, _P]

@@ -34,28 +34,52 @@
 //
 // K5 replaces strings.py: _like_table (SQL LIKE). The host parses the
 // pattern into its non-empty %-separated segments, each with its branch of
-// the TPU kernel: an anchored first segment compares bytes 0..m-1, an
-// anchored last one the window at len-m (starting at or after the cursor),
-// any other one takes its leftmost window at or after the cursor (greedy is
-// exact for segments of fixed length); a pattern without % also needs the
-// exact length. '_' matches one byte (the host keeps it off non-ASCII
-// tables). One thread per entry; the segment table (offset, length,
-// branch) and the pattern bytes (0x100 = wildcard) are copied once per
-// block into shared memory sized at launch. Matched segments never
-// overlap, so a pattern whose bytes exceed L matches nothing and the host
-// launches nothing: the shared copy is at most (3 + 1) * 4 * 512 bytes,
-// and every pattern the parser gives runs here. The TPU kernel built an
+// the TPU kernel: an anchored first segment matches at byte 0, an anchored
+// last one the window at len-m (starting at or after the cursor), any other
+// one takes its leftmost window at or after the cursor (greedy is exact for
+// segments of fixed length); a pattern without % also needs the exact
+// length. '_' matches one byte (the host keeps it off non-ASCII tables).
+// Matched segments never overlap, so a pattern whose bytes exceed L
+// matches nothing and the host launches nothing. The TPU kernel built an
 // (n, L-m+1, m) window tensor per segment under a 64 MiB budget; this one
 // builds nothing and has no budget. Bound: the table's bytes (n*L + 4n
 // read, n written), or the byte comparisons of this data where those are
-// larger; like K4, each thread walks its own row and stops a window at its
-// first mismatch and the search at its first hit.
+// larger. Design:
+// - the parsed pattern reaches the card by value in the launch's
+//   parameters (K5Pattern, built by the C entry point: the segments as
+//   bit masks of their first and last body bytes, the concatenated body,
+//   the '_' mask, and a 256-entry table of position masks over the body,
+//   '_' setting its bit for every byte), so a call makes no copy; each
+//   block copies the table to shared memory;
+// - a body of up to 64 bytes (every pattern the query paths use) is one
+//   shift-and pass over the row, segment after segment: a floating
+//   segment injects its first bit at every byte at or after the cursor,
+//   and its first end bit is its leftmost match, the reference's greedy
+//   choice, after which the next segment starts; an anchored first
+//   segment injects at byte 0 only, and an anchored last one is decided
+//   by its end bit after the row's last byte, which is a window at
+//   len-m starting at or after the cursor. A 32-bit state serves bodies
+//   of up to 32 bytes. A byte is an extract, a shared load and a few
+//   logic operations; a segment's end is one rare branch, so the lanes of
+//   a warp stay together, and the anchored first segment's failure is
+//   read once a chunk;
+// - a thread walks its own row in 16-byte __ldg loads (narrower for
+//   L < 16, as K4), the next chunk's load issued before the current one
+//   is scanned, only the chunks below len read, and it stops as soon as
+//   the row is decided;
+// - a longer body compares bytes against the struct's copy in shared
+//   memory, segment by segment; it is correct, not fast (no query uses
+//   one).
 //
-// K6 replaces strings.py: substring_colv's kernel. One thread per output
-// byte (entry i, byte j) computes its entry's clamped slice (Spark's
-// 1-based or negative pos, optional length), writes the byte or zero
-// padding, and byte 0 writes the new length. Bound: n*L bytes read and
-// written plus the lengths; reads and writes are coalesced along j.
+// K6 replaces strings.py: substring_colv's kernel: Spark's substring(pos,
+// len) of every entry, the end derived from the unclamped start. One
+// thread per 16-byte output chunk (a thread per row for L < 16), indexed
+// with shifts: it computes its entry's clamped start and new length once,
+// reads the one or two aligned 16-byte source chunks that cover its
+// output, aligns them with __funnelshift_r on the run-time offset (no
+// local array: ptxas reports a 0-byte stack frame), zeroes the bytes past
+// the new length and writes one 16-byte store; the chunk-0 thread writes
+// the new length. Bound: n*L bytes read and written plus the lengths.
 //
 // Plain C interface for ctypes; every entry point returns
 // cudaGetLastError().
@@ -307,76 +331,292 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-constexpr int LIKE_WILD = 0x100;
-enum LikeMode { LIKE_PREFIX = 0, LIKE_SUFFIX = 1, LIKE_SEARCH = 2 };
+// ---- K5 --------------------------------------------------------------------
 
-__device__ __forceinline__ bool like_eq(const uint8_t* __restrict__ row,
-                                        int p, const int* seg, int m) {
-  for (int k = 0; k < m; ++k) {
-    const int t = seg[k];
-    if (t != LIKE_WILD && row[p + k] != t) return false;
-  }
-  return true;
+// The parsed pattern, by value in the launch's parameters.
+struct K5Pattern {
+  unsigned long long table[256];   // bit k: body byte k (k < 64) takes c
+  unsigned long long starts[MAX_NEEDLE / 64];  // bit k: a segment's first
+  unsigned long long ends[MAX_NEEDLE / 64];    //   / last byte is body k
+  unsigned long long wild[MAX_NEEDLE / 64];    // bit k: body byte k is '_'
+  uint8_t body[MAX_NEEDLE];  // the segments' bytes, concatenated
+  int nbytes, nseg;
+  int first_prefix;  // the first segment is anchored at byte 0
+  int last_suffix;   // the last segment is anchored at the row's end
+  int exact_len;     // -1, or the length a pattern without % needs
+};
+static_assert(sizeof(K5Pattern) <= 4096,
+              "K5Pattern must fit the 4 KB kernel parameter space");
+
+template <typename W>
+__device__ __forceinline__ W lowest_bit(W x) {
+  return x & (W(0) - x);
 }
 
-__global__ void k5_like_table(const uint8_t* __restrict__ chars,
-                              const int* __restrict__ lens, int n, int L,
-                              const int* __restrict__ spec, int nseg,
-                              int nbytes, int exact_len,
-                              uint8_t* __restrict__ out) {
-  // 3 * nseg ints of (offset, length, mode), then nbytes pattern entries
-  extern __shared__ int sp[];
-  const int total = 3 * nseg + nbytes;
-  for (int k = threadIdx.x; k < total; k += blockDim.x) sp[k] = spec[k];
-  __syncthreads();
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint8_t* row = chars + i * (long long)L;
-  const int len = lens[i];
-  const int* pat = sp + 3 * nseg;
-  bool ok = true;
-  int cur = 0;
-  for (int s = 0; s < nseg && ok; ++s) {
-    const int* seg = pat + sp[3 * s];
-    const int m = sp[3 * s + 1];
-    const int mode = sp[3 * s + 2];
-    if (mode == LIKE_PREFIX) {
-      ok = len >= m && like_eq(row, 0, seg, m);
-      cur = m;
-    } else if (mode == LIKE_SUFFIX) {
-      ok = len - m >= cur && like_eq(row, len - m, seg, m);
-      cur = len;
-    } else {
-      int p = cur;
-      while (p + m <= len && !like_eq(row, p, seg, m)) ++p;
-      ok = p + m <= len;
-      cur = p + m;
+enum { K5_GO = 0, K5_TRUE = 1, K5_FALSE = 2 };
+
+// Where the shift-and scan of one row stands. d: bit k set when the body
+// bytes from the current segment's first to k match ending here; inj: the
+// segment's first bit, injected at the next byte; keep: all ones, or 0
+// while the anchored first segment runs (it injects at byte 0 only); chk:
+// the segment's last bit, or 0 for an anchored last segment (decided
+// after the row's last byte); rest_s / rest_e: the segments to come.
+template <typename W>
+struct K5Scan {
+  W d, inj, keep, ebit, chk, rest_s, rest_e;
+  bool last, suffix;
+
+  __device__ __forceinline__ void next_segment(int last_suffix) {
+    inj = lowest_bit(rest_s);
+    rest_s ^= inj;
+    ebit = lowest_bit(rest_e);
+    rest_e ^= ebit;
+    last = rest_s == W(0);
+    suffix = last && last_suffix;
+    chk = suffix ? W(0) : ebit;
+    d = W(0);
+  }
+
+  // One byte (its table entry t). The rare branch: the segment ended, and
+  // the next one starts at the next byte.
+  __device__ __forceinline__ int step(W t, int last_suffix) {
+    d = ((d << 1) | inj) & t;
+    inj &= keep;
+    if ((d & chk) != W(0)) {
+      if (last) return K5_TRUE;
+      next_segment(last_suffix);
+      keep = ~W(0);
+    }
+    return K5_GO;
+  }
+};
+
+// Bytes [0, nb) of chunk c, nb <= 16 (guards, not branches, for the
+// partial last chunk). An anchored first segment that failed leaves d at
+// 0 for good, so the chunk's end tells.
+template <typename W>
+__device__ __forceinline__ int k5_chunk(K5Scan<W>& st, const W* tab,
+                                        const uint4& c, int nb,
+                                        int last_suffix) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j < nb) {
+      const int r = st.step(tab[byte_of(c, j)], last_suffix);
+      if (r != K5_GO) return r;
     }
   }
-  if (exact_len >= 0) ok = ok && len == exact_len;
-  out[i] = ok ? 1 : 0;
+  return (st.d | st.keep) == W(0) ? K5_FALSE : K5_GO;
 }
 
-__global__ void k6_substring(const uint8_t* __restrict__ chars,
-                             const int* __restrict__ lens, int n, int L,
-                             long long pos, long long length, int has_length,
-                             uint8_t* __restrict__ out,
-                             int* __restrict__ out_lens) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n * L) return;
-  const long long i = t / L;
-  const int j = (int)(t - i * L);
-  const long long len = lens[i];
-  // strings.py:306-317: end derives from the unclamped start
-  long long start = pos > 0 ? pos - 1 : (pos < 0 ? len + pos : 0);
-  long long end = has_length ? start + length : len;
-  long long start_c = start < 0 ? 0 : (start > len ? len : start);
-  long long end_c = end < len ? end : len;
-  end_c = end_c < 0 ? 0 : end_c;
-  long long out_len = end_c - start_c;
-  out_len = out_len < 0 ? 0 : out_len;
-  out[t] = j < out_len ? chars[i * L + start_c + j] : 0;
-  if (j == 0) out_lens[i] = (int)out_len;
+template <typename W, int L>
+__device__ __forceinline__ bool k5_row(const uint8_t* __restrict__ chars,
+                                       long long i, int len,
+                                       const K5Pattern& p, const W* tab) {
+  if (p.exact_len >= 0 && len != p.exact_len) return false;
+  if (p.nseg == 0) return true;
+  K5Scan<W> st;
+  st.rest_s = (W)p.starts[0];
+  st.rest_e = (W)p.ends[0];
+  st.next_segment(p.last_suffix);
+  st.keep = p.first_prefix ? W(0) : ~W(0);
+  int r = K5_GO;
+  if (L < 16) {
+    uint4 c[1];
+    load_row<L>(chars, i, c);
+    r = k5_chunk<W>(st, tab, c[0], len, p.last_suffix);
+  } else {
+    const uint4* row = reinterpret_cast<const uint4*>(chars + i * L);
+    const int nch = (len + 15) >> 4;
+    uint4 c = __ldg(row);
+    for (int q = 0; q < nch && r == K5_GO; ++q) {
+      const uint4 nx = q + 1 < nch ? __ldg(row + q + 1) : c;
+      r = k5_chunk<W>(st, tab, c, len - 16 * q, p.last_suffix);
+      c = nx;
+    }
+  }
+  if (r != K5_GO) return r == K5_TRUE;
+  return st.suffix && (st.d & st.ebit) != W(0);
+}
+
+// Bodies of up to 64 bytes (W: 32 bits up to 32): one thread per row,
+// grid-stride.
+template <typename W, int L>
+__global__ void __launch_bounds__(THREADS)
+    k5_like_rows(const uint8_t* __restrict__ chars,
+                 const int* __restrict__ lens, int n,
+                 const __grid_constant__ K5Pattern p,
+                 uint8_t* __restrict__ out) {
+  __shared__ W tab[256];
+  for (int k = threadIdx.x; k < 256; k += THREADS) tab[k] = (W)p.table[k];
+  __syncthreads();
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * THREADS)
+    out[i] = k5_row<W, L>(chars, i, __ldg(lens + i), p, tab) ? 1 : 0;
+}
+
+__device__ __forceinline__ bool bit_at(const unsigned long long* bits,
+                                       int k) {
+  return (bits[k >> 6] >> (k & 63)) & 1ull;
+}
+
+// Bodies past 64 bytes: segment by segment, each window compared byte by
+// byte against the body in shared memory.
+__global__ void __launch_bounds__(THREADS)
+    k5_like_bytes(const uint8_t* __restrict__ chars,
+                  const int* __restrict__ lens, int n, int L,
+                  const __grid_constant__ K5Pattern p,
+                  uint8_t* __restrict__ out) {
+  __shared__ uint8_t body[MAX_NEEDLE];
+  __shared__ unsigned long long wild[MAX_NEEDLE / 64];
+  __shared__ unsigned long long ends[MAX_NEEDLE / 64];
+  for (int k = threadIdx.x; k < MAX_NEEDLE; k += THREADS) body[k] = p.body[k];
+  for (int k = threadIdx.x; k < MAX_NEEDLE / 64; k += THREADS) {
+    wild[k] = p.wild[k];
+    ends[k] = p.ends[k];
+  }
+  __syncthreads();
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * THREADS) {
+    const uint8_t* row = chars + i * (long long)L;
+    const int len = __ldg(lens + i);
+    bool ok = p.exact_len < 0 || len == p.exact_len;
+    int cur = 0, off = 0;
+    for (int s = 0; s < p.nseg && ok; ++s) {
+      int m = 1;
+      while (!bit_at(ends, off + m - 1)) ++m;
+      const bool prefix = s == 0 && p.first_prefix;
+      const bool suffix = s == p.nseg - 1 && p.last_suffix;
+      int at = prefix ? 0 : suffix ? len - m : cur;
+      const int last_at = prefix || suffix ? at : len - m;
+      ok = false;
+      for (; at <= last_at && at >= cur && at + m <= len && !ok; ++at) {
+        int k = 0;
+        while (k < m && (bit_at(wild, off + k) ||
+                         __ldg(row + at + k) == body[off + k]))
+          ++k;
+        ok = k == m;
+      }
+      cur = at - 1 + m;
+      off += m;
+    }
+    out[i] = ok ? 1 : 0;
+  }
+}
+
+// ---- K6 --------------------------------------------------------------------
+
+// Spark's slice of an entry of len bytes (strings.py:306-317: the end
+// derives from the unclamped start): its clamped start and length.
+__device__ __forceinline__ void k6_bounds(long long len, long long pos,
+                                          long long length, int has_length,
+                                          int& start_c, int& out_len) {
+  const long long start = pos > 0 ? pos - 1 : (pos < 0 ? len + pos : 0);
+  const long long end = has_length ? start + length : len;
+  const long long sc = start < 0 ? 0 : (start > len ? len : start);
+  long long ec = end < len ? end : len;
+  ec = ec < 0 ? 0 : ec;
+  start_c = (int)sc;
+  out_len = (int)(ec - sc > 0 ? ec - sc : 0);
+}
+
+__device__ __forceinline__ unsigned pick4(unsigned a, unsigned b, unsigned c,
+                                          unsigned d, int k) {
+  return k == 0 ? a : k == 1 ? b : k == 2 ? c : d;
+}
+
+// Bytes [off, off + 16) of the 32 bytes a:b, the bytes from keep on
+// zeroed (off in [0, 16), keep in [0, 16]).
+// The low kb bytes of a word kept (kb may be out of [0, 4]).
+__device__ __forceinline__ unsigned keep_bytes(unsigned w, int kb) {
+  return w & (kb >= 4 ? 0xffffffffu : kb <= 0 ? 0u : (1u << (8 * kb)) - 1u);
+}
+
+__device__ __forceinline__ uint4 k6_align(const uint4& a, const uint4& b,
+                                          int off, int keep) {
+  const int ws = off >> 2, bs = (off & 3) * 8;
+  const unsigned v0 = pick4(a.x, a.y, a.z, a.w, ws);
+  const unsigned v1 = pick4(a.y, a.z, a.w, b.x, ws);
+  const unsigned v2 = pick4(a.z, a.w, b.x, b.y, ws);
+  const unsigned v3 = pick4(a.w, b.x, b.y, b.z, ws);
+  const unsigned v4 = pick4(b.x, b.y, b.z, b.w, ws);
+  return make_uint4(keep_bytes(__funnelshift_r(v0, v1, bs), keep),
+                    keep_bytes(__funnelshift_r(v1, v2, bs), keep - 4),
+                    keep_bytes(__funnelshift_r(v2, v3, bs), keep - 8),
+                    keep_bytes(__funnelshift_r(v3, v4, bs), keep - 12));
+}
+
+// L >= 16: one thread per 16-byte output chunk, grid-stride; G = L / 16
+// chunks a row, lg = log2(G).
+template <int L>
+__global__ void __launch_bounds__(THREADS)
+    k6_substring(const uint8_t* __restrict__ chars,
+                 const int* __restrict__ lens, long long total, long long pos,
+                 long long length, int has_length, uint8_t* __restrict__ out,
+                 int* __restrict__ out_lens) {
+  constexpr int G = L / 16;
+  constexpr int LG = G == 1 ? 0 : G == 2 ? 1 : G == 4 ? 2 : G == 8 ? 3
+                   : G == 16 ? 4 : 5;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+       t < total; t += (long long)gridDim.x * THREADS) {
+    const long long i = t >> LG;
+    const int q = (int)(t & (G - 1));
+    int start_c, out_len;
+    k6_bounds(__ldg(lens + i), pos, length, has_length, start_c, out_len);
+    const int o0 = 16 * q;
+    uint4 res = zero;
+    if (o0 < out_len) {
+      const int s0 = start_c + o0;
+      const int keep = min(16, out_len - o0);
+      const int a = s0 >> 4, off = s0 & 15;
+      const uint4* row = reinterpret_cast<const uint4*>(chars + i * L);
+      const uint4 lo = __ldg(row + a);
+      const uint4 hi = off + keep > 16 ? __ldg(row + a + 1) : zero;
+      res = k6_align(lo, hi, off, keep);
+    }
+    reinterpret_cast<uint4*>(out + i * L)[q] = res;
+    if (q == 0) out_lens[i] = out_len;
+  }
+}
+
+// L < 16: one thread per row, the row in one chunk.
+template <int L>
+__global__ void __launch_bounds__(THREADS)
+    k6_substring_rows(const uint8_t* __restrict__ chars,
+                      const int* __restrict__ lens, int n, long long pos,
+                      long long length, int has_length,
+                      uint8_t* __restrict__ out, int* __restrict__ out_lens) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * THREADS) {
+    int start_c, out_len;
+    k6_bounds(__ldg(lens + i), pos, length, has_length, start_c, out_len);
+    uint4 c[1];
+    load_row<L>(chars, i, c);
+    const uint4 r = k6_align(c[0], zero, start_c, out_len);
+    if (L == 8) {
+      reinterpret_cast<uint2*>(out)[i] = make_uint2(r.x, r.y);
+    } else if (L == 4) {
+      reinterpret_cast<unsigned*>(out)[i] = r.x;
+    } else if (L == 2) {
+      reinterpret_cast<unsigned short*>(out)[i] = (unsigned short)r.x;
+    } else {
+      out[i] = (uint8_t)r.x;
+    }
+    out_lens[i] = out_len;
+  }
+}
+
+// Blocks for a grid-stride launch of ``work`` threads: at most 8 a
+// streaming multiprocessor.
+int grid_blocks(long long work) {
+  static int sms_of[64];  // per device, once
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& sms = sms_of[dev & 63];
+  if (sms == 0) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+  return (int)std::min<long long>((work + THREADS - 1) / THREADS, 8ll * sms);
 }
 
 }  // namespace
@@ -402,15 +642,8 @@ int srt_k4_match_table(const void* chars, const void* lens, int n, int L,
     p.table[((const uint8_t*)needle)[k]] |= 1ull << k;
   p.m = m;
   p.kind = kind;
-  static int sms_of[64];  // per device, once
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& sms = sms_of[dev & 63];
-  if (sms == 0) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev);
-  const int rows_per_block = L <= 64 ? THREADS : THREADS / (L / 16);
-  const int blocks = (int)std::min<long long>(
-      ((long long)n + rows_per_block - 1) / rows_per_block, 8ll * sms);
+  // a thread a row up to L = 64, a group of L / 16 lanes a row past it
+  const int blocks = grid_blocks((long long)n * (L <= 64 ? 1 : L / 16));
   const uint8_t* c = (const uint8_t*)chars;
   const int* ln = (const int*)lens;
   uint8_t* o = (uint8_t*)out;
@@ -433,38 +666,112 @@ int srt_k4_match_table(const void* chars, const void* lens, int n, int L,
   return (int)cudaGetLastError();
 }
 
-// chars: uint8[n, L]; lens: int32[n]; spec: int32[3 * nseg + nbytes], the
-// segments' (offset, length, mode) then the pattern entries (byte, or 0x100
-// for '_'); every segment non-empty, nbytes <= L; exact_len -1 for none;
-// out: bool[n].
+// chars: uint8[n, L], 16-byte aligned; lens: int32[n]; the parsed
+// pattern in HOST memory: body (nbytes bytes, the non-empty segments
+// concatenated), wild (nbytes flags: the byte is '_'), seg_lens (int32
+// [nseg], each >= 1, summing to nbytes <= L <= 512), whether the first
+// segment is anchored at byte 0 and the last at the end, exact_len (-1 for
+// none); out: bool[n]. The pattern travels in the launch's parameters:
+// one launch, no copy.
 int srt_k5_like_table(const void* chars, const void* lens, int n, int L,
-                      const void* spec, int nseg, int nbytes, int exact_len,
-                      void* out, void* stream) {
+                      const void* body, const void* wild, int nbytes,
+                      const void* seg_lens, int nseg, int first_prefix,
+                      int last_suffix, int exact_len, void* out,
+                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
-  if (nseg < 0 || nbytes < nseg || nbytes > L || L > MAX_NEEDLE)
+  if (nseg < 0 || nbytes < nseg || nbytes > L || L > MAX_NEEDLE ||
+      (L & (L - 1)) != 0 || ((uintptr_t)chars & 15u) != 0)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (int)(((long long)n + THREADS - 1) / THREADS);
-  const size_t smem = (size_t)(3 * nseg + nbytes) * sizeof(int);
-  k5_like_table<<<blocks, THREADS, smem, s>>>(
-      (const uint8_t*)chars, (const int*)lens, n, L, (const int*)spec, nseg,
-      nbytes, exact_len, (uint8_t*)out);
+  K5Pattern p;
+  memset(&p, 0, sizeof(p));
+  const uint8_t* b = (const uint8_t*)body;
+  const uint8_t* w = (const uint8_t*)wild;
+  memcpy(p.body, b, (size_t)nbytes);
+  for (int k = 0; k < nbytes; ++k) {
+    if (w[k]) p.wild[k >> 6] |= 1ull << (k & 63);
+    if (k >= 64) continue;
+    if (w[k]) {
+      for (int c = 0; c < 256; ++c) p.table[c] |= 1ull << k;
+    } else {
+      p.table[b[k]] |= 1ull << k;
+    }
+  }
+  int at = 0;
+  for (int g = 0; g < nseg; ++g) {
+    const int m = ((const int*)seg_lens)[g];
+    if (m < 1 || at + m > nbytes) return (int)cudaErrorInvalidValue;
+    p.starts[at >> 6] |= 1ull << (at & 63);
+    p.ends[(at + m - 1) >> 6] |= 1ull << ((at + m - 1) & 63);
+    at += m;
+  }
+  if (at != nbytes) return (int)cudaErrorInvalidValue;
+  p.nbytes = nbytes;
+  p.nseg = nseg;
+  p.first_prefix = first_prefix;
+  p.last_suffix = last_suffix;
+  p.exact_len = exact_len;
+  const int blocks = grid_blocks(n);
+  const uint8_t* c = (const uint8_t*)chars;
+  const int* ln = (const int*)lens;
+  uint8_t* o = (uint8_t*)out;
+  if (nbytes > 64) {
+    k5_like_bytes<<<blocks, THREADS, 0, s>>>(c, ln, n, L, p, o);
+    return (int)cudaGetLastError();
+  }
+  switch (L) {
+#define K5_ROWS(LL)                                                         \
+  case LL:                                                                  \
+    if (nbytes <= 32)                                                       \
+      k5_like_rows<unsigned, LL><<<blocks, THREADS, 0, s>>>(c, ln, n, p, o); \
+    else                                                                    \
+      k5_like_rows<unsigned long long, LL><<<blocks, THREADS, 0, s>>>(      \
+          c, ln, n, p, o);                                                  \
+    break;
+    K5_ROWS(1) K5_ROWS(2) K5_ROWS(4) K5_ROWS(8) K5_ROWS(16) K5_ROWS(32)
+    K5_ROWS(64) K5_ROWS(128) K5_ROWS(256) K5_ROWS(512)
+#undef K5_ROWS
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-// chars: uint8[n, L]; lens: int32[n]; out: uint8[n, L]; out_lens: int32[n].
-// has_length 0 means "to the end" (length is then ignored).
+// chars: uint8[n, L], 16-byte aligned; lens: int32[n]; out: uint8[n, L];
+// out_lens: int32[n]. has_length 0 means "to the end" (length is then
+// ignored).
 int srt_k6_substring(const void* chars, const void* lens, int n, int L,
                      long long pos, long long length, int has_length,
                      void* out, void* out_lens, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
-  const long long total = (long long)n * L;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  k6_substring<<<(unsigned)blocks, THREADS, 0, s>>>(
-      (const uint8_t*)chars, (const int*)lens, n, L, pos, length, has_length,
-      (uint8_t*)out, (int*)out_lens);
+  if (L < 1 || L > MAX_NEEDLE || (L & (L - 1)) != 0 ||
+      ((uintptr_t)chars & 15u) != 0 || ((uintptr_t)out & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* c = (const uint8_t*)chars;
+  const int* ln = (const int*)lens;
+  uint8_t* o = (uint8_t*)out;
+  int* ol = (int*)out_lens;
+  const long long total = L >= 16 ? (long long)n * (L / 16) : n;
+  const int blocks = grid_blocks(total);
+  switch (L) {
+#define K6_ROWS(LL)                                                      \
+  case LL:                                                               \
+    k6_substring_rows<LL><<<blocks, THREADS, 0, s>>>(c, ln, n, pos, length, \
+                                                     has_length, o, ol); \
+    break;
+#define K6_CHUNKS(LL)                                                     \
+  case LL:                                                                \
+    k6_substring<LL><<<blocks, THREADS, 0, s>>>(c, ln, total, pos, length, \
+                                                has_length, o, ol);       \
+    break;
+    K6_ROWS(1) K6_ROWS(2) K6_ROWS(4) K6_ROWS(8) K6_CHUNKS(16) K6_CHUNKS(32)
+    K6_CHUNKS(64) K6_CHUNKS(128) K6_CHUNKS(256) K6_CHUNKS(512)
+#undef K6_ROWS
+#undef K6_CHUNKS
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

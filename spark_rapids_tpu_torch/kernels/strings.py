@@ -20,13 +20,16 @@ tensor, so ``contains`` has no size budget.
 
 ``like_table`` replaces ``_like_table`` (same file): SQL LIKE per entry,
 greedy over the pattern's ``%``-separated segments (exact for segments
-of fixed length), ``_`` matching one byte. One thread per entry, with
-the parsed pattern in shared memory; like K4 it has no window budget.
+of fixed length), ``_`` matching one byte. The pattern is parsed once per
+(pattern, escape) (``like_spec``) and reaches the card by value in the
+launch's parameters, as K4's needle does; a thread walks its row in one
+shift-and pass for bodies up to 64 bytes. Like K4 it has no window
+budget.
 
 ``substring_table`` replaces the kernel of ``substring_colv`` (same
 file): Spark ``substring(pos, len)`` over an ASCII table, one thread per
-output byte, bound by the table's bytes in and out. The host then
-rebuilds the sorted dictionary of the slices and remaps the codes.
+16-byte output chunk, bound by the table's bytes in and out. The host
+then rebuilds the sorted dictionary of the slices and remaps the codes.
 
 Routes the reference takes by content stay: an entry longer than 512
 bytes gives no table, ``substring`` and a LIKE pattern with ``_`` need
@@ -37,6 +40,8 @@ version for CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -249,7 +254,7 @@ def like_table_plain(chars: torch.Tensor, lens: torch.Tensor, pattern: str,
     exact length. ``_`` matches any one byte."""
     n, L = chars.shape
     dev = chars.device
-    lp = parse_like(pattern, escape)
+    lp = like_spec(pattern, escape).pattern
     lv = lens.to(torch.int64)
     ok = torch.ones(n, dtype=torch.bool, device=dev)
     cur = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -287,6 +292,37 @@ def like_table_plain(chars: torch.Tensor, lens: torch.Tensor, pattern: str,
     return ok
 
 
+class LikeSpec(NamedTuple):
+    """A LIKE pattern as K5 takes it, parsed once per (pattern, escape):
+    the non-empty segments' bytes concatenated (``body``), which of them
+    are ``_`` (``wild``, one flag byte each), and the arguments of
+    ``srt_k5_like_table`` that describe it (body, wild, their length, each
+    segment's length and their count, the anchoring of the first and the
+    last, the exact length a pattern without ``%`` needs or -1)."""
+
+    pattern: LikePattern
+    body: bytes
+    wild: bytes
+    args: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def like_spec(pattern: str, escape: str) -> LikeSpec:
+    lp = parse_like(pattern, escape)
+    modes = like_segments(lp)
+    tokens = [t for _, seg in modes for t in seg]
+    body = bytes(0 if t is None else t for t in tokens)
+    wild = bytes(int(t is None) for t in tokens)
+    seg_lens = [len(seg) for _, seg in modes]
+    exact = _exact_len(lp)
+    args = (body, wild, len(body),
+            (ctypes.c_int * max(len(seg_lens), 1))(*seg_lens), len(seg_lens),
+            int(bool(modes) and modes[0][0] == LIKE_PREFIX),
+            int(bool(modes) and modes[-1][0] == LIKE_SUFFIX),
+            -1 if exact is None else exact)
+    return LikeSpec(lp, body, wild, args)
+
+
 def like_table(chars: torch.Tensor, lens: torch.Tensor, pattern: str,
                escape: str, ascii_only: bool) -> Optional[torch.Tensor]:
     """bool[n]: does each entry match the SQL LIKE ``pattern``; None where
@@ -294,12 +330,11 @@ def like_table(chars: torch.Tensor, lens: torch.Tensor, pattern: str,
     byte is not a character), and the caller runs its host transform.
     A pattern whose literal bytes exceed L matches nothing (matched
     segments never overlap), so it launches nothing."""
-    lp = parse_like(pattern, escape)
-    modes = like_segments(lp)
-    if not ascii_only and any(t is None for _, seg in modes for t in seg):
+    spec = like_spec(pattern, escape)
+    if not ascii_only and any(spec.wild):
         return None
     n, L = chars.shape
-    if sum(len(seg) for _, seg in modes) > L:
+    if len(spec.body) > L:
         return torch.zeros(n, dtype=torch.bool, device=chars.device)
     if not chars.is_cuda:
         return like_table_plain(chars, lens, pattern, escape)
@@ -308,18 +343,11 @@ def like_table(chars: torch.Tensor, lens: torch.Tensor, pattern: str,
     out = torch.empty(n, dtype=torch.bool, device=chars.device)
     if n == 0:
         return out
-    # one int32 spec: (offset, length, mode) per segment, then one entry
-    # per pattern byte, 0x100 standing for the wildcard
-    table, body = [], []
-    for mode, seg in modes:
-        table += [len(body), len(seg), mode]
-        body += [0x100 if t is None else t for t in seg]
-    spec = torch.tensor(table + body, dtype=torch.int32, device=chars.device)
-    exact = _exact_len(lp)
+    if chars.data_ptr() % 16:  # the kernel reads rows 16 bytes at a time
+        chars = chars.clone()
     lib = nk.load("strings")
     nk.check(lib.srt_k5_like_table(
-        chars.data_ptr(), lens.data_ptr(), n, L, spec.data_ptr(),
-        len(modes), len(body), -1 if exact is None else exact,
+        chars.data_ptr(), lens.data_ptr(), n, L, *spec.args,
         out.data_ptr(), nk.stream_handle(chars.device)), "like_table")
     nk.count_launch("like_table", n)
     return out
@@ -365,6 +393,8 @@ def substring_table(chars: torch.Tensor, lens: torch.Tensor, pos: int,
     out_lens = torch.empty_like(lens)
     if n == 0:
         return out, out_lens
+    if chars.data_ptr() % 16:  # the kernel moves 16-byte chunks
+        chars = chars.clone()
     lib = nk.load("strings")
     nk.check(lib.srt_k6_substring(
         chars.data_ptr(), lens.data_ptr(), n, L, int(pos),

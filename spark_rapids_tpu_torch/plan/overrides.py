@@ -1,7 +1,9 @@
 """Plan -> exec conversion (the counterpart of
 spark_rapids_tpu/plan/overrides.py with fusion and adaptive execution
 off). Each ported node type converts to its exec; any other node raises.
-Tagging and CPU fallback are not ported.
+Every expression passes through ``expressions.folding.fold`` on its way,
+so each exec computes what the reference's XLA backend computes. Tagging
+and CPU fallback are not ported.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from spark_rapids_tpu_torch.execs.basic import (FilterExec, LimitExec,
 from spark_rapids_tpu_torch.execs.joins import (KIND_MAP,
                                                 BroadcastHashJoinExec)
 from spark_rapids_tpu_torch.execs.sort import SortExec
+from spark_rapids_tpu_torch.expressions.folding import fold
 from spark_rapids_tpu_torch.plan import nodes as pn
 
 #: rows per uploaded scan batch (the reference's
@@ -40,12 +43,14 @@ def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
         return ScanExec(node.source, schema, int(conf[BATCH_SIZE_ROWS]),
                         device)
     if isinstance(node, pn.FilterNode):
-        return FilterExec(node.condition, kids[0], device)
+        return FilterExec(fold(node.condition), kids[0], device)
     if isinstance(node, pn.ProjectNode):
-        return ProjectExec(node.exprs, kids[0], schema, device)
+        return ProjectExec([fold(e) for e in node.exprs], kids[0], schema,
+                           device)
     if isinstance(node, pn.AggregateNode):
-        return HashAggregateExec(node.grouping, node.aggs, kids[0], schema,
-                                 device)
+        aggs = [pn.AggCall(fold(a.fn), a.name) for a in node.aggs]
+        return HashAggregateExec([fold(e) for e in node.grouping], aggs,
+                                 kids[0], schema, device)
     if isinstance(node, pn.SortNode):
         return SortExec(node.specs, kids[0], device)
     if isinstance(node, pn.LimitNode):
@@ -53,7 +58,8 @@ def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
     if isinstance(node, pn.JoinNode):
         if node.kind not in KIND_MAP:
             raise NotImplementedError(f"{node.kind} join is not ported")
+        cond = None if node.condition is None else fold(node.condition)
         return BroadcastHashJoinExec(node.kind, kids[0], kids[1],
                                      node.left_keys, node.right_keys,
-                                     schema, device, node.condition)
+                                     schema, device, cond)
     raise NotImplementedError(f"{node.describe()} is not ported")

@@ -7,6 +7,8 @@ where only torch is installed:
 """
 from __future__ import annotations
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 
@@ -319,6 +321,98 @@ def test_like_table_kernel_equals_plain(n):
                 continue
             want = kstr.like_table_plain(chars, lens, pattern, escape)
             assert torch.equal(got, want), pattern
+
+
+# every path of K5 at one width: each anchoring, '_' at the edges of
+# segments, escaped '%' and '_', bodies of 32, 33-64 and past 64 bytes
+_WIDTH_PATTERNS = ["a%", "%a", "_%", "%_", "a_%_b", "%_a%b_%", "ab%cd",
+                   "%a%b%a%", "%d\\%%", "%\\_a%", "_a%\\%_",
+                   "%" + "ab" * 16 + "%", "%" + "a_c-" * 12,
+                   "ab%" + "cd-" * 23 + "%", "%" + "abcd_" * 20 + "%"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", (1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
+def test_like_table_kernel_equals_plain_at_widths(L):
+    """Rows of a-d, '-', '%' and '_' (every seventh planted with a
+    pattern's literal form), on and off a 16-byte boundary."""
+    dev = _card()
+    r = np.random.default_rng(L)
+    n = 3000
+    alphabet = np.frombuffer(b"abcd-%_", np.uint8)
+    lens = r.integers(0, L + 1, n).astype(np.int32)
+    chars = alphabet[r.integers(0, len(alphabet), (n, L))]
+    patterns = _WIDTH_PATTERNS + ["a" * L, "_" * L]
+    for i in range(0, n, 7):
+        lit = patterns[(i // 7) % len(patterns)].replace("\\", "") \
+            .replace("%", "").replace("_", "a")
+        if 0 < len(lit) <= lens[i]:
+            chars[i, :len(lit)] = np.frombuffer(lit.encode(), np.uint8)
+    chars[np.arange(L)[None, :] >= lens[:, None]] = 0
+    tc = torch.from_numpy(chars).to(dev)
+    tl = torch.from_numpy(lens).to(dev)
+    for pattern in patterns:
+        want = kstr.like_table_plain(tc, tl, pattern)
+        if len(kstr.like_spec(pattern, "\\").body) > L:
+            want = torch.zeros_like(want)
+        assert torch.equal(kstr.like_table(tc, tl, pattern, "\\", True),
+                           want), pattern
+        assert torch.equal(kstr.like_table(tc[1:], tl[1:], pattern, "\\",
+                                           True), want[1:]), pattern
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", (8, 16, 64, 512))
+def test_substring_kernel_equals_plain_at_widths(L):
+    """The 30 pos / length edges of the smoke run at one width (a thread
+    a row below 16 bytes, a thread a 16-byte chunk from 16), on and off a
+    16-byte boundary."""
+    dev = _card()
+    r = np.random.default_rng(L + 1)
+    n = 3000
+    lens = r.integers(0, L + 1, n).astype(np.int32)
+    chars = np.frombuffer(b"abcd-", np.uint8)[r.integers(0, 5, (n, L))]
+    chars[np.arange(L)[None, :] >= lens[:, None]] = 0
+    tc = torch.from_numpy(chars).to(dev)
+    tl = torch.from_numpy(lens).to(dev)
+    for pos in (-20, -3, 0, 1, 5, 40):
+        for length in (None, 0, -1, 2, 100):
+            for c, ln in ((tc, tl), (tc[1:], tl[1:])):
+                got = kstr.substring_table(c, ln, pos, length)
+                want = kstr.substring_table_plain(c, ln, pos, length)
+                assert torch.equal(got[0], want[0]), (pos, length)
+                assert torch.equal(got[1], want[1]), (pos, length)
+
+
+# C3: float products that feed an add, each against a * b + c rounded
+# once (computed exactly with fractions)
+_FMA = {"a * b + c": lambda a, b, c: a * b + c,
+        "a * 0.3 - c": lambda a, b, c: a * Fraction(0.3) - c,
+        "0.1 - a * b": lambda a, b, c: Fraction(0.1) - a * b,
+        # a / 3.0 is a * (1 / 3.0), rounded before it meets b
+        "c + (a / 3.0) * b":
+            lambda a, b, c: c + Fraction(float(a * Fraction(1 / 3.0))) * b}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expr", sorted(_FMA))
+def test_multiply_add_rounds_once_on_the_card(expr):
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.plan.nodes import InMemorySource
+
+    dev = _card()
+    r = np.random.default_rng(3)
+    n = 3001
+    cols = {k: r.standard_normal(n) * 10.0 ** r.integers(-3, 3, n)
+            for k in "abc"}
+    s = Session(device=dev)
+    s.create_temp_view("t", InMemorySource(cols))
+    got = np.asarray(s.sql(f"SELECT {expr} AS x FROM t").collect()["x"],
+                     np.float64)
+    want = np.array([float(_FMA[expr](Fraction(a), Fraction(b),
+                                      Fraction(c)))
+                     for a, b, c in zip(cols["a"], cols["b"], cols["c"])])
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
 
 
 @pytest.mark.cuda
