@@ -54,8 +54,15 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
 6. TPC-H q14 at sf 10 (lineitem 60M rows in 8 generation chunks, part
    2M), within 1e-9 relative of a numpy oracle, with K4, K3 and K1
    launched during the query;
-7. TPC-H q22 at sf 10 (customer 1.5M rows, orders 15M), country codes
-   and counts exact and balances within 1e-9 relative of a numpy
+7. TPC-H q1, q6, q12 and q3 at sf 10 over the same lineitem (and
+   orders 15M, customer 1.5M), generated once with its string columns
+   as ``HostStrings`` (one sorted dictionary per table), strings, keys
+   and counts exact and float sums and averages within 1e-9 relative of
+   numpy oracles, with K1 launched during each and K3 during q12 and
+   q3 (K2's launches are printed); q3's build rows beside its peak
+   device memory;
+   then TPC-H q22 at sf 10 (customer 1.5M rows, orders 15M), country
+   codes and counts exact and balances within 1e-9 relative of a numpy
    oracle, with K6, K3, K2 and K1 launched during the query, and the
    substring step split into kernel time and host dictionary rebuild;
 8. TPC-DS q91 at sf 10 (catalog_returns 1.2M rows sampled from 14.4M
@@ -95,7 +102,11 @@ PATH_KERNELS = {"q26": ("partition_order", "radix_order", "probe"),
                 "q14": ("match_table", "probe", "partition_order"),
                 "q22": ("substring", "probe", "radix_order",
                         "partition_order"),
-                "q91": ("like_table", "probe", "partition_order")}
+                "q91": ("like_table", "probe", "partition_order"),
+                "q1": ("partition_order",),
+                "q6": ("partition_order",),
+                "q12": ("partition_order", "probe"),
+                "q3": ("partition_order", "probe")}
 KERNELS = ("partition_order", "radix_order", "probe", "match_table",
            "like_table", "substring")
 # the reference's window budget (native/kernels/strings.py _WINDOW_BUDGET)
@@ -273,7 +284,63 @@ def _k1_case(mask, label, iters, lib_iters, show=True):
     return rec
 
 
-def phase_kernels(dev, ss, item, q26_cid, q91):
+def _k3_tpch_cases(k3_case, dev, tables):
+    """K3 at the shapes of TPC-H q3's two joins and q12's join: each
+    build whole, each stream one scan batch as its join sees it."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.benchmarks.datagen import days
+    from spark_rapids_tpu_torch.kernels import join as kjoin
+
+    def build(keys):
+        h = torch.sort(_hashes(keys, dev)).values
+        return kjoin.build_table(h), h
+
+    def is_in(col, values):
+        return np.isin(col.codes, np.flatnonzero(np.isin(col.dictionary,
+                                                         values)))
+
+    batch = 1 << 21  # plan/overrides.py BATCH_SIZE_ROWS
+    li, orders, cust = (tables["lineitem"], tables["orders"],
+                        tables["customer"])
+    # q3's first join: the filtered orders (unique keys) build; the
+    # stream is the lineitem scan batch with the most rows after q3's
+    # filter (lineitem's ship dates rise along the table)
+    ok = orders["o_orderdate"] < days(tpch.Q3_DATE)
+    o_table, o_h = build(orders["o_orderkey"][ok])
+    live = li["l_shipdate"] > days(tpch.Q3_DATE)
+    per = np.add.reduceat(live, np.arange(0, len(live), batch),
+                          dtype=np.int64)
+    top = int(np.argmax(per))
+    sl = slice(top * batch, (top + 1) * batch)
+    lk = li["l_orderkey"][sl][live[sl]]
+    k3_case("q3 orders build, one lineitem batch", o_table, o_h,
+            _hashes(lk, dev), show=False)
+    # q3's second join: the BUILDING customers build; the stream is the
+    # o_custkey of that batch's matches (orders are sorted by key)
+    okeys = orders["o_orderkey"]
+    pos = np.searchsorted(okeys, lk).clip(max=len(okeys) - 1)
+    hit = (okeys[pos] == lk) & ok[pos]
+    c_table, c_h = build(cust["c_custkey"][is_in(cust["c_mktsegment"],
+                                                  [tpch.Q3_SEGMENT])])
+    k3_case("q3 customer build, that batch's matches", c_table, c_h,
+            _hashes(orders["o_custkey"][pos[hit]], dev), show=False)
+    del o_table, o_h, c_table, c_h
+    # q12: the filtered lineitem (up to 7 lines an order) builds, one
+    # orders scan batch streams
+    ship, commit = li["l_shipdate"], li["l_commitdate"]
+    receipt = li["l_receiptdate"]
+    keep = (is_in(li["l_shipmode"], tpch.Q12_MODES) & (commit < receipt) &
+            (ship < commit) & (receipt >= days(tpch.Q12_FROM)) &
+            (receipt < days(tpch.Q12_TO)))
+    l_table, l_h = build(li["l_orderkey"][keep])
+    k3_case("q12 lineitem build, one orders batch", l_table, l_h,
+            _hashes(orders["o_orderkey"][:batch], dev), show=False)
+
+
+def phase_kernels(dev, ss, item, q26_cid, q91, tpch_tables):
     """Kernel vs plain at the path's shapes. Returns name -> record of
     the main path's case, with every case under ``cases``."""
     import numpy as np
@@ -286,7 +353,8 @@ def phase_kernels(dev, ss, item, q26_cid, q91):
 
     # K1: which of the 28.8M sales are of a Books item
     books = np.zeros(int(item["i_item_sk"].max()) + 1, dtype=bool)
-    books[item["i_item_sk"][item["i_category"] == "Books"]] = True
+    bmask = item["i_category"].to_objects() == "Books"
+    books[item["i_item_sk"][bmask]] = True
     mask = torch.from_numpy(books[ss["ss_item_sk"]]).to(dev)
     recs["partition_order"] = _k1_case(mask, "", 20, 5)
     # K1 at one scan batch (plan/overrides.py BATCH_SIZE_ROWS), the most
@@ -296,7 +364,6 @@ def phase_kernels(dev, ss, item, q26_cid, q91):
                                         k1_batch]
 
     # K3: the Books build's hashes, probed by every sale's item hash
-    bmask = item["i_category"] == "Books"
     sb_h = torch.sort(_hashes(item["i_item_sk"][bmask], dev)).values
     h_p = _hashes(ss["ss_item_sk"], dev)
     table = kjoin.build_table(sb_h)
@@ -344,6 +411,7 @@ def phase_kernels(dev, ss, item, q26_cid, q91):
         0, cc_h.numel(), 1 << 21)).to(dev)
     k3_case("q91 keys, one scan batch", cr_table, cr_h, cc_h[pick],
             show=False)
+    _k3_tpch_cases(k3_case, dev, tpch_tables)
     recs["probe"] = dict(k3[0])
     recs["probe"]["cases"] = [_case(c) for c in k3]
 
@@ -484,12 +552,10 @@ def phase_string_kernels(dev, part, customer):
         k6.append(rec)
 
     # q14: StartsWith(p_type, 'PROMO') over part's dictionary
-    p_type = _string_table(np.unique(part["p_type"].astype(str))
-                           .astype(object), dev)
+    p_type = _string_table(part["p_type"].dictionary, dev)
     k4_case("p_type", *p_type, "starts", "PROMO")
     # q22: the sf-10 c_phone dictionary
-    phone = _string_table(np.unique(customer["c_phone"].astype(str))
-                          .astype(object), dev)
+    phone = _string_table(customer["c_phone"].dictionary, dev)
     for kind, needle in (("starts", "13-"), ("ends", "-1000"),
                          ("contains", "99-1")):
         k4_case("c_phone", *phone, kind, needle)
@@ -633,7 +699,7 @@ def phase_like_kernel(dev, hd, phone, seeded):
         cases.append(rec)
         return rec
 
-    hd_dic = np.unique(hd["hd_buy_potential"].astype(str)).astype(object)
+    hd_dic = hd["hd_buy_potential"].dictionary
     main = case("hd_buy_potential", *_string_table(hd_dic, dev), "unknown%")
     if main["matches"] != 1:
         raise AssertionError("'unknown%' must match one buy potential")
@@ -835,6 +901,39 @@ def phase_q14(dev, lineitem, part, nk):
     return rec
 
 
+def phase_tpch(dev, name, tables, nk):
+    """TPC-H q1, q3, q6 or q12 at sf 10 against its numpy oracle."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks import datagen, tpch
+
+    args = [tables[t] for t in tpch.INPUTS[name]]
+    t0 = time.perf_counter()
+    want = getattr(tpch, f"{name}_numpy")(*args)
+    oracle_s = time.perf_counter() - t0
+    got, rec = _run_query(name, _plan_runner(
+        dev, lambda: getattr(tpch, name)(*args)), nk)
+    _check_columns(name, got, want)
+    rows = len(next(iter(want.values())))
+    if not rows or (name == "q6" and want["revenue"][0] is None):
+        raise AssertionError(f"{name} at sf {SF} must return rows")
+    rec.update({f"{t}_rows": len(next(iter(tables[t].values())))
+                for t in tpch.INPUTS[name]})
+    rec.update(result_rows=rows, oracle_s=oracle_s, matches_oracle=True)
+    if name == "q3":
+        # the reordered chain: filtered lineitem streams, filtered orders
+        # build the first join, filtered customer the second
+        orders, customer = tables["orders"], tables["customer"]
+        rec.update(orders_build_rows=int(
+            (orders["o_orderdate"] < datagen.days(tpch.Q3_DATE)).sum()),
+            customer_build_rows=int(np.isin(
+                customer["c_mktsegment"].codes,
+                np.flatnonzero(customer["c_mktsegment"].dictionary ==
+                               tpch.Q3_SEGMENT)).sum()))
+    print(json.dumps(rec))
+    return rec
+
+
 def phase_q22(dev, customer, orders, phone, nk):
     import numpy as np
     import torch
@@ -848,7 +947,7 @@ def phase_q22(dev, customer, orders, phone, nk):
     _check_columns("q22", got, want)
     # the substring step on the c_phone dictionary, split: host encode of
     # the dictionary, the kernel, the host rebuild of the sliced one
-    dic = np.unique(customer["c_phone"].astype(str)).astype(object)
+    dic = customer["c_phone"].dictionary
     t0 = time.perf_counter()
     kstr.encode_dictionary(dic)
     encode_s = time.perf_counter() - t0
@@ -946,33 +1045,44 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    phase = "device"
+    phase, t_phase = "device", t_start
     runs = {}
+
+    def enter(name):
+        """Print the seconds of the phase that ends, start ``name``."""
+        nonlocal phase, t_phase
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_phase:.1f} s")
+        phase, t_phase = name, now
+
     try:
         smi = _smi()
         print(f"nvidia-smi: {smi}")
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)} "
               f"count {torch.cuda.device_count()}")
-        phase = "build"
+        enter("build")
         phase_build(nk)
         if sys.argv[1:] == ["--strings"]:
-            phase = "string kernels"
+            enter("string kernels")
             srecs, phone, seeded = phase_string_kernels(
                 dev, datagen.gen_part(SF), datagen.gen_customer(SF))
-            phase = "like kernel"
+            enter("like kernel")
             phase_like_kernel(dev, tpcds.gen_household_demographics(SF),
                               phone, seeded)
+            enter("end")
             print(_smi())
             return 0
-        phase = "data"
-        t0 = time.perf_counter()
+        enter("data")
         ss = tpcds.gen_store_sales(SF)
         item = tpcds.gen_item(SF)
         want = tpcxbb.q26_numpy(ss, item)
+        # one lineitem for q14, q1, q6, q12 and q3
         lineitem, part = datagen.gen_lineitem(SF), datagen.gen_part(SF)
         customer, orders = datagen.gen_customer(SF), datagen.gen_orders(SF)
         q91_tables = tpcds.q91_tables(SF)
+        tables = {"lineitem": lineitem, "orders": orders,
+                  "customer": customer}
         print(f"data: sf {SF}, {len(ss['ss_item_sk'])} sales, "
               f"{len(item['i_item_sk'])} items, {len(want['cid'])} q26 "
               f"rows; {len(lineitem['l_partkey'])} lineitem, "
@@ -980,33 +1090,38 @@ def main() -> int:
               f"{len(customer['c_custkey'])} customer, "
               f"{len(orders['o_custkey'])} orders; q91: "
               f"{len(q91_tables['catalog_returns']['cr_net_loss'])} "
-              f"catalog_returns; {time.perf_counter() - t0:.1f} s")
-        phase = "kernels"
-        recs = phase_kernels(dev, ss, item, want["cid"], q91_tables)
-        phase = "string kernels"
+              f"catalog_returns")
+        enter("kernels")
+        recs = phase_kernels(dev, ss, item, want["cid"], q91_tables,
+                             tables)
+        enter("string kernels")
         srecs, phone, seeded = phase_string_kernels(dev, part, customer)
         recs.update(srecs)
-        phase = "like kernel"
+        enter("like kernel")
         recs["like_table"] = phase_like_kernel(
             dev, q91_tables["household_demographics"], phone, seeded)
         del seeded
-        phase = "fma"
+        enter("fma")
         phase_fma(dev)
-        phase = "q5lite"
+        enter("q5lite")
         phase_q5lite(dev)
-        phase = "q26"
+        enter("q26")
         runs["q26"] = phase_q26(dev, ss, item, want, nk)
         del ss, item
-        phase = "q14"
+        enter("q14")
         runs["q14"] = phase_q14(dev, lineitem, part, nk)
-        del lineitem
-        phase = "q22"
+        for name in ("q1", "q6", "q12", "q3"):
+            enter(name)
+            runs[name] = phase_tpch(dev, name, tables, nk)
+        del lineitem, tables
+        enter("q22")
         runs["q22"] = phase_q22(dev, customer, orders, phone, nk)
         del customer, orders
-        phase = "q91"
+        enter("q91")
         runs["q91"] = phase_q91(dev, q91_tables, nk)
-        phase = "k1 launch sizes"
+        enter("k1 launch sizes")
         phase_k1_sizes(dev, runs, recs["partition_order"])
+        enter("end")
     except Exception as e:  # report the failing phase, print no result
         import traceback
 

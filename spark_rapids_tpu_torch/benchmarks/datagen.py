@@ -1,12 +1,15 @@
-"""The q14 and q22 columns of the TPC-H generators, in numpy alone.
+"""The q1, q3, q6, q12, q14 and q22 columns of the TPC-H generators, in
+numpy alone.
 
 Each function replays spark_rapids_tpu/benchmarks/datagen.py's
 ``default_rng`` draws in the same order with the same bounds (a bounded
 draw's consumption of the stream depends on its bounds), stopping after
-the last column q14 and q22 read, so the columns equal the reference's
-seed for seed. A column drawn but not read is drawn and dropped; string
-columns are built from their drawn indices through a table of the
-distinct strings, never one Python string per row.
+the last column these queries read, so the columns equal the
+reference's seed for seed. A column drawn but not read is drawn and
+dropped. A string column is a ``HostStrings``: the drawn indices,
+remapped through the table of its distinct strings sorted once, and
+that one sorted dictionary for the whole table; no Python string is
+made per row.
 
 As the reference's ``gen_table_chunks``, a table of up to ``chunk_rows``
 rows (``CHUNK_ROWS`` by default) is one whole-table draw from
@@ -18,16 +21,32 @@ from __future__ import annotations
 
 import numpy as np
 
+from spark_rapids_tpu_torch.io.hoststrings import HostStrings
+
 CHUNK_ROWS = 1 << 23
 _SEEDS = {"lineitem": 11, "orders": 12, "customer": 13, "part": 17}
 _EPOCH = np.datetime64("1970-01-01")
 
+RETURN_FLAGS = np.array(["A", "N", "R"], dtype=object)
+LINE_STATUS = np.array(["F", "O"], dtype=object)
+SEGMENTS = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
+                     "MACHINERY"], dtype=object)
+PRIORITIES = np.array(["1-URGENT", "2-HIGH", "3-MEDIUM",
+                       "4-NOT SPECIFIED", "5-LOW"], dtype=object)
+SHIP_MODES = np.array(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP",
+                       "TRUCK"], dtype=object)
 P_TYPES_1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
 P_TYPES_2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
 P_TYPES_3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
 
-LINEITEM_COLUMNS = ["l_partkey", "l_extendedprice", "l_discount",
-                    "l_shipdate"]
+LINEITEM_COLUMNS = ["l_orderkey", "l_partkey", "l_quantity",
+                    "l_extendedprice", "l_discount", "l_tax",
+                    "l_returnflag", "l_linestatus", "l_shipdate",
+                    "l_commitdate", "l_receiptdate", "l_shipmode"]
+ORDERS_COLUMNS = ["o_orderkey", "o_custkey", "o_orderdate",
+                  "o_orderpriority", "o_shippriority"]
+CUSTOMER_COLUMNS = ["c_custkey", "c_mktsegment", "c_acctbal", "c_phone"]
+PART_COLUMNS = ["p_partkey", "p_type"]
 
 
 def days(s: str) -> int:
@@ -60,17 +79,25 @@ def _chunks(name: str, sf: float, chunk_rows: int):
                min(chunk_rows, n - start), ci, nchunks)
 
 
-def _concat(parts, names):
-    return {c: np.concatenate([p[c] for p in parts]) for c in names}
+def _concat(parts, names, strings=None):
+    """The chunks' columns joined; ``strings`` maps a string column to its
+    table of distinct strings (the chunks hold indices into it)."""
+    strings = strings or {}
+    out = {}
+    for c in names:
+        col = np.concatenate([p[c] for p in parts])
+        out[c] = HostStrings.from_table(strings[c], col) \
+            if c in strings else col
+    return out
 
 
 def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
-    """``l_partkey``, ``l_extendedprice``, ``l_discount`` and
-    ``l_shipdate`` (the draws of ``_lineitem_chunk`` up to
-    ``l_discount``)."""
+    """``LINEITEM_COLUMNS``: the draws of ``_lineitem_chunk`` up to
+    ``l_shipmode`` (``l_suppkey`` drawn and dropped)."""
     parts = []
     for rng, _start, n, ci, nchunks in _chunks("lineitem", sf, chunk_rows):
-        rng.integers(1, max(int(1_500_000 * sf), 25) * 4, n)  # l_orderkey
+        orderkey = rng.integers(1, max(int(1_500_000 * sf), 25) * 4, n
+                                ).astype(np.int64)
         if nchunks == 1:
             lo, hi = _LO, _HI
         else:
@@ -78,17 +105,30 @@ def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
             lo = _LO + (span * ci) // nchunks
             hi = _LO + (span * (ci + 1)) // nchunks - 1
         shipdate = rng.integers(lo, hi + 1, n).astype(np.int32)
-        rng.integers(-30, 61, n)                           # commit delta
-        rng.integers(1, 31, n)                             # receipt delta
+        commit_delta = rng.integers(-30, 61, n)
+        receipt_delta = rng.integers(1, 31, n)
         partkey = rng.integers(1, max(int(200_000 * sf), 10), n
                                ).astype(np.int64)
         rng.integers(1, max(int(10_000 * sf), 5), n)       # l_suppkey
-        rng.integers(1, 51, n)                             # l_quantity
+        quantity = rng.integers(1, 51, n).astype(np.float64)
         price = np.round(rng.random(n) * 100_000 + 900, 2)
         discount = np.round(rng.integers(0, 11, n) / 100.0, 2)
-        parts.append({"l_partkey": partkey, "l_extendedprice": price,
-                      "l_discount": discount, "l_shipdate": shipdate})
-    return _concat(parts, LINEITEM_COLUMNS)
+        tax = np.round(rng.integers(0, 9, n) / 100.0, 2)
+        returnflag = rng.integers(0, 3, n).astype(np.int32)
+        linestatus = rng.integers(0, 2, n).astype(np.int32)
+        shipmode = rng.integers(0, 7, n).astype(np.int32)
+        parts.append({
+            "l_orderkey": orderkey, "l_partkey": partkey,
+            "l_quantity": quantity, "l_extendedprice": price,
+            "l_discount": discount, "l_tax": tax,
+            "l_returnflag": returnflag, "l_linestatus": linestatus,
+            "l_shipdate": shipdate,
+            "l_commitdate": (shipdate + commit_delta).astype(np.int32),
+            "l_receiptdate": (shipdate + receipt_delta).astype(np.int32),
+            "l_shipmode": shipmode})
+    return _concat(parts, LINEITEM_COLUMNS, {
+        "l_returnflag": RETURN_FLAGS, "l_linestatus": LINE_STATUS,
+        "l_shipmode": SHIP_MODES})
 
 
 def gen_part(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
@@ -102,36 +142,48 @@ def gen_part(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
         t3 = rng.integers(0, 5, n)
         parts.append({
             "p_partkey": np.arange(start + 1, start + n + 1, dtype=np.int64),
-            "p_type": types[t1 * 25 + t2 * 5 + t3]})
-    return _concat(parts, ["p_partkey", "p_type"])
+            "p_type": t1 * 25 + t2 * 5 + t3})
+    return _concat(parts, PART_COLUMNS, {"p_type": types})
 
 
 def gen_customer(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
-    """``c_custkey``, ``c_acctbal`` and ``c_phone``. The reference draws
-    the phone's country code with one scalar ``rng.integers(10, 35)`` per
-    row inside an f-string; a vector draw of the same bounds gives the
-    same values from the same stream."""
+    """``CUSTOMER_COLUMNS``. The reference draws the phone's country code
+    with one scalar ``rng.integers(10, 35)`` per row inside an f-string;
+    a vector draw of the same bounds gives the same values from the same
+    stream."""
     suffix = np.arange(9000)
     phones = np.array([f"{cc}-{i % 900 + 100}-{i + 1000}"
                        for cc in range(10, 35) for i in suffix],
                       dtype=object)
     parts = []
     for rng, start, n, _ci, _nc in _chunks("customer", sf, chunk_rows):
-        rng.integers(0, 5, n)                              # c_mktsegment
+        segment = rng.integers(0, 5, n)
         acctbal = np.round(rng.random(n) * 11_000 - 1_000, 2)
         rng.integers(0, 25, n)                             # c_nationkey
         cc = rng.integers(10, 35, n)
         row = np.arange(start, start + n)
         parts.append({
             "c_custkey": np.arange(start + 1, start + n + 1, dtype=np.int64),
-            "c_acctbal": acctbal,
-            "c_phone": phones[(cc - 10) * 9000 + row % 9000]})
-    return _concat(parts, ["c_custkey", "c_acctbal", "c_phone"])
+            "c_mktsegment": segment, "c_acctbal": acctbal,
+            "c_phone": (cc - 10) * 9000 + row % 9000})
+    return _concat(parts, CUSTOMER_COLUMNS,
+                   {"c_mktsegment": SEGMENTS, "c_phone": phones})
 
 
 def gen_orders(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
-    """``o_custkey`` (each chunk's first draw)."""
-    parts = [{"o_custkey": rng.integers(1, max(int(150_000 * sf), 10), n
-                                        ).astype(np.int64)}
-             for rng, _s, n, _ci, _nc in _chunks("orders", sf, chunk_rows)]
-    return _concat(parts, ["o_custkey"])
+    """``ORDERS_COLUMNS``: the draws of ``_orders_chunk`` up to
+    ``o_orderpriority`` (``o_totalprice`` drawn and dropped), and
+    ``o_shippriority``, 0 on every row."""
+    parts = []
+    for rng, start, n, _ci, _nc in _chunks("orders", sf, chunk_rows):
+        custkey = rng.integers(1, max(int(150_000 * sf), 10), n
+                               ).astype(np.int64)
+        rng.random(n)                                      # o_totalprice
+        orderdate = rng.integers(_LO, _HI + 1, n).astype(np.int32)
+        parts.append({
+            "o_orderkey": np.arange(start + 1, start + n + 1,
+                                    dtype=np.int64) * 4,
+            "o_custkey": custkey, "o_orderdate": orderdate,
+            "o_orderpriority": rng.integers(0, 5, n),
+            "o_shippriority": np.zeros(n, dtype=np.int32)})
+    return _concat(parts, ORDERS_COLUMNS, {"o_orderpriority": PRIORITIES})

@@ -1,5 +1,6 @@
 """Where a query's time goes on the card: one warm run of TPCx-BB q26,
-TPC-H q14 or q22, or TPC-DS q91 (through ``Session.sql``) under
+TPC-H q1, q3, q6, q12, q14 or q22, or TPC-DS q91 (through
+``Session.sql``) under
 ``torch.profiler`` (device time by kernel name,
 the run's wall time, the device's busy share of it and the port's kernel
 launches), then one under
@@ -7,7 +8,7 @@ launches), then one under
 not native work, so its shares only point at candidates).
 
     python -m spark_rapids_tpu_torch.benchmarks.profile_query \\
-        [--query q26|q14|q22|q91] [--sf 10]
+        [--query q26|q14|q22|q91|q1|q3|q6|q12] [--sf 10]
 
 Prints one JSON line per query. Needs a CUDA device.
 """
@@ -28,13 +29,10 @@ def _plan_fn(query: str, sf: float):
     if query == "q26":
         ss, item = tpcds.gen_store_sales(sf), tpcds.gen_item(sf)
         return lambda: tpcxbb.q26(ss, item)
-    if query == "q14":
-        li, part = datagen.gen_lineitem(sf), datagen.gen_part(sf)
-        return lambda: tpch.q14(li, part)
     if query == "q91":
         return _q91_plan_fn(tpcds.q91_tables(sf))
-    cust, orders = datagen.gen_customer(sf), datagen.gen_orders(sf)
-    return lambda: tpch.q22(cust, orders)
+    tables = [getattr(datagen, f"gen_{t}")(sf) for t in tpch.INPUTS[query]]
+    return lambda: getattr(tpch, query)(*tables)
 
 
 def _q91_plan_fn(tables):
@@ -106,7 +104,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q26", "q14", "q22", "q91"),
+    ap.add_argument("--query", choices=("q26", "q14", "q22", "q91", "q1", "q3",
+                                      "q6", "q12"),
                     action="append")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--top", type=int, default=15)

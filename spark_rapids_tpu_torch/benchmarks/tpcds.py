@@ -5,13 +5,16 @@ Each function replays spark_rapids_tpu/benchmarks/tpcds.py's
 ``default_rng`` draws in the same order with the same bounds (a bounded
 draw's consumption of the stream depends on its bounds), stopping after
 the last column its query reads, so the columns equal the reference's
-seed for seed.
+seed for seed. A string column is a ``HostStrings``: the drawn indices
+remapped through the sorted table of its distinct strings.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+
+from spark_rapids_tpu_torch.io.hoststrings import HostStrings
 
 CATEGORIES = np.array(["Books", "Electronics", "Home", "Jewelry", "Men",
                        "Music", "Shoes", "Sports", "Children", "Women"],
@@ -42,7 +45,7 @@ def gen_item(sf: float, seed: int = 32) -> dict:
     cat_id = rng.integers(0, 10, n)
     class_id = rng.integers(1, 9, n).astype(np.int32)
     return {"i_item_sk": np.arange(1, n + 1, dtype=np.int64),
-            "i_category": CATEGORIES[cat_id],
+            "i_category": HostStrings.from_table(CATEGORIES, cat_id),
             "i_class_id": class_id}
 
 
@@ -129,13 +132,17 @@ def gen_call_center(sf: float, seed: int = 54) -> dict:
     """``cc_call_center_sk``, ``cc_call_center_id``, ``cc_name`` and
     ``cc_manager`` of ``tpcds.gen_call_center`` (no draw reaches them)."""
     n = 6
+    rows = np.arange(n)
+
+    def strings(fmt):
+        return HostStrings.from_table(
+            np.array([fmt.format(i) for i in range(1, n + 1)],
+                     dtype=object), rows)
+
     return {"cc_call_center_sk": np.arange(1, n + 1, dtype=np.int64),
-            "cc_call_center_id": np.array(
-                [f"AAAAAAAA{i:04d}" for i in range(1, n + 1)], dtype=object),
-            "cc_name": np.array([f"call center {i}"
-                                 for i in range(1, n + 1)], dtype=object),
-            "cc_manager": np.array([f"Manager {i}" for i in range(1, n + 1)],
-                                   dtype=object)}
+            "cc_call_center_id": strings("AAAAAAAA{:04d}"),
+            "cc_name": strings("call center {}"),
+            "cc_manager": strings("Manager {}")}
 
 
 def gen_date_dim(sf: float, seed: int = 31) -> dict:
@@ -186,8 +193,8 @@ def gen_customer_demographics(sf: float, seed: int = 37) -> dict:
     rng = np.random.default_rng(seed)
     n = max(int(1_000 * sf), 20)
     rng.integers(0, 2, n)                               # cd_gender
-    marital = _MARITAL[rng.integers(0, 5, n)]
-    education = _EDUCATION[rng.integers(0, 7, n)]
+    marital = HostStrings.from_table(_MARITAL, rng.integers(0, 5, n))
+    education = HostStrings.from_table(_EDUCATION, rng.integers(0, 7, n))
     return {"cd_demo_sk": np.arange(1, n + 1, dtype=np.int64),
             "cd_marital_status": marital,
             "cd_education_status": education}
@@ -201,7 +208,8 @@ def gen_household_demographics(sf: float, seed: int = 39) -> dict:
     rng.integers(0, 10, n)                              # hd_dep_count
     rng.integers(0, 6, n)                               # hd_vehicle_count
     return {"hd_demo_sk": np.arange(1, n + 1, dtype=np.int64),
-            "hd_buy_potential": _BUY_POTENTIAL[rng.integers(0, 4, n)]}
+            "hd_buy_potential": HostStrings.from_table(
+                _BUY_POTENTIAL, rng.integers(0, 4, n))}
 
 
 #: q91's tables, name -> generator of the columns q91 reads
@@ -225,6 +233,8 @@ def q91_numpy(t: Dict[str, dict]) -> Dict[str, np.ndarray]:
     dates from their first day), so each return looks its rows up by
     index; filter, group by the five string keys in their sorted order,
     sum, and order by the sum, descending (stable over the key order)."""
+    t = {name: {k: v.to_objects() if isinstance(v, HostStrings) else v
+                for k, v in cols.items()} for name, cols in t.items()}
     cr, cc, d = t["catalog_returns"], t["call_center"], t["date_dim"]
     c, ca = t["customer"], t["customer_address"]
     cd, hd = t["customer_demographics"], t["household_demographics"]

@@ -1,6 +1,8 @@
-"""TPC-H q14 and q22 over in-memory tables (the counterpart of
-spark_rapids_tpu/benchmarks/tpch.py ``q14`` and ``q22``, the same plan
-trees), and numpy oracles."""
+"""TPC-H q1, q3, q6, q12, q14 and q22 over in-memory tables (the
+counterpart of spark_rapids_tpu/benchmarks/tpch.py's functions of those
+names, the same plan trees), and numpy oracles. String columns are
+``HostStrings`` (``benchmarks/datagen.py``); the oracles read their codes
+and dictionaries."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -18,19 +20,37 @@ from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Literal)
 from spark_rapids_tpu_torch.expressions.conditional import If
 from spark_rapids_tpu_torch.expressions.strings import StartsWith, Substring
+from spark_rapids_tpu_torch.io.hoststrings import HostStrings
 from spark_rapids_tpu_torch.ops.sortkeys import SortKeySpec
 from spark_rapids_tpu_torch.plan import nodes as pn
 
 Table = Dict[str, np.ndarray]
 
-_TYPES = {"l_partkey": dt.INT64, "l_extendedprice": dt.FLOAT64,
-          "l_discount": dt.FLOAT64, "l_shipdate": dt.DATE,
+_TYPES = {"l_orderkey": dt.INT64, "l_partkey": dt.INT64,
+          "l_quantity": dt.FLOAT64, "l_extendedprice": dt.FLOAT64,
+          "l_discount": dt.FLOAT64, "l_tax": dt.FLOAT64,
+          "l_returnflag": dt.STRING, "l_linestatus": dt.STRING,
+          "l_shipdate": dt.DATE, "l_commitdate": dt.DATE,
+          "l_receiptdate": dt.DATE, "l_shipmode": dt.STRING,
           "p_partkey": dt.INT64, "p_type": dt.STRING,
-          "c_custkey": dt.INT64, "c_acctbal": dt.FLOAT64,
-          "c_phone": dt.STRING, "o_custkey": dt.INT64}
+          "c_custkey": dt.INT64, "c_mktsegment": dt.STRING,
+          "c_acctbal": dt.FLOAT64, "c_phone": dt.STRING,
+          "o_orderkey": dt.INT64, "o_custkey": dt.INT64,
+          "o_orderdate": dt.DATE, "o_orderpriority": dt.STRING,
+          "o_shippriority": dt.INT32}
 
+Q1_SHIPPED_BY = "1998-09-02"
+Q3_SEGMENT, Q3_DATE = "BUILDING", "1995-03-15"
+Q6_FROM, Q6_TO = "1994-01-01", "1995-01-01"
+Q12_MODES = ("MAIL", "SHIP")
+Q12_HIGH = ("1-URGENT", "2-HIGH")
+Q12_FROM, Q12_TO = "1994-01-01", "1995-01-01"
 Q14_FROM, Q14_TO = "1995-09-01", "1995-10-01"
 Q22_CODES = ("13", "31", "23", "29", "30")
+#: the tables each query reads, in its function's argument order
+INPUTS = {"q1": ("lineitem",), "q3": ("customer", "orders", "lineitem"),
+          "q6": ("lineitem",), "q12": ("orders", "lineitem"),
+          "q14": ("lineitem", "part"), "q22": ("customer", "orders")}
 
 
 def ref(i, t):
@@ -50,6 +70,120 @@ def _lit_one(plan: pn.PlanNode, names) -> pn.PlanNode:
     exprs = [ref(i, t) for i, t in enumerate(types)]
     exprs.append(Literal(1, dt.INT64))
     return pn.ProjectNode(exprs, plan, list(names) + ["one"])
+
+
+def _date(s: str) -> Literal:
+    return Literal(days(s), dt.DATE)
+
+
+def q1(lineitem: Table) -> pn.PlanNode:
+    """Pricing summary report: a scan, one filter, a group-by on two
+    string columns with eight aggregates, ORDER BY both."""
+    scan = _scan(lineitem, ["l_returnflag", "l_linestatus", "l_quantity",
+                            "l_extendedprice", "l_discount", "l_tax",
+                            "l_shipdate"])
+    filt = pn.FilterNode(P.LessThanOrEqual(ref(6, dt.DATE),
+                                           _date(Q1_SHIPPED_BY)), scan)
+    qty, price = ref(2, dt.FLOAT64), ref(3, dt.FLOAT64)
+    disc, tax = ref(4, dt.FLOAT64), ref(5, dt.FLOAT64)
+    disc_price = ar.Multiply(price, ar.Subtract(Literal(1.0), disc))
+    charge = ar.Multiply(disc_price, ar.Add(Literal(1.0), tax))
+    agg = pn.AggregateNode(
+        [ref(0, dt.STRING), ref(1, dt.STRING)],
+        [pn.AggCall(Sum(qty), "sum_qty"),
+         pn.AggCall(Sum(price), "sum_base_price"),
+         pn.AggCall(Sum(disc_price), "sum_disc_price"),
+         pn.AggCall(Sum(charge), "sum_charge"),
+         pn.AggCall(Average(qty), "avg_qty"),
+         pn.AggCall(Average(price), "avg_price"),
+         pn.AggCall(Average(disc), "avg_disc"),
+         pn.AggCall(Count(), "count_order")],
+        filt, grouping_names=["l_returnflag", "l_linestatus"])
+    return pn.SortNode([SortKeySpec.spark_default(0),
+                        SortKeySpec.spark_default(1)], agg)
+
+
+def q6(lineitem: Table) -> pn.PlanNode:
+    """Forecasting revenue change: one tight filter, a grand sum."""
+    scan = _scan(lineitem, ["l_extendedprice", "l_discount", "l_quantity",
+                            "l_shipdate"])
+    d = ref(3, dt.DATE)
+    cond = P.And(
+        P.And(P.GreaterThanOrEqual(d, _date(Q6_FROM)),
+              P.LessThan(d, _date(Q6_TO))),
+        P.And(P.And(P.GreaterThanOrEqual(ref(1, dt.FLOAT64),
+                                         Literal(0.05)),
+                    P.LessThanOrEqual(ref(1, dt.FLOAT64), Literal(0.07))),
+              P.LessThan(ref(2, dt.FLOAT64), Literal(24.0))))
+    revenue = ar.Multiply(ref(0, dt.FLOAT64), ref(1, dt.FLOAT64))
+    return pn.AggregateNode([], [pn.AggCall(Sum(revenue), "revenue")],
+                            pn.FilterNode(cond, scan))
+
+
+def q3(customer: Table, orders: Table, lineitem: Table) -> pn.PlanNode:
+    """Shipping priority: customer and orders and lineitem, each
+    filtered, joined, grouped by order, top 10 by revenue. As written,
+    lineitem builds; ``apply_overrides`` reorders the chain as the
+    reference does, so lineitem streams."""
+    cust = pn.FilterNode(P.EqualTo(ref(1, dt.STRING), Literal(Q3_SEGMENT)),
+                         _scan(customer, ["c_custkey", "c_mktsegment"]))
+    ords = pn.FilterNode(
+        P.LessThan(ref(2, dt.DATE), _date(Q3_DATE)),
+        _scan(orders, ["o_orderkey", "o_custkey", "o_orderdate",
+                       "o_shippriority"]))
+    li = pn.FilterNode(
+        P.GreaterThan(ref(3, dt.DATE), _date(Q3_DATE)),
+        _scan(lineitem, ["l_orderkey", "l_extendedprice", "l_discount",
+                         "l_shipdate"]))
+    # [c_custkey 0, c_mktsegment 1, o_orderkey 2, o_custkey 3,
+    #  o_orderdate 4, o_shippriority 5] + lineitem's at 6..9
+    co = pn.JoinNode("inner", cust, ords, [0], [1])
+    col = pn.JoinNode("inner", co, li, [2], [0])
+    revenue = ar.Multiply(ref(7, dt.FLOAT64),
+                          ar.Subtract(Literal(1.0), ref(8, dt.FLOAT64)))
+    proj = pn.ProjectNode(
+        [Alias(ref(6, dt.INT64), "l_orderkey"),
+         Alias(ref(4, dt.DATE), "o_orderdate"),
+         Alias(ref(5, dt.INT32), "o_shippriority"),
+         Alias(revenue, "rev")], col)
+    agg = pn.AggregateNode(
+        [ref(0, dt.INT64), ref(1, dt.DATE), ref(2, dt.INT32)],
+        [pn.AggCall(Sum(ref(3, dt.FLOAT64)), "revenue")],
+        proj, grouping_names=["l_orderkey", "o_orderdate",
+                              "o_shippriority"])
+    sort = pn.SortNode([SortKeySpec.spark_default(3, ascending=False),
+                        SortKeySpec.spark_default(1)], agg)
+    return pn.LimitNode(10, sort)
+
+
+def q12(orders: Table, lineitem: Table) -> pn.PlanNode:
+    """Shipping modes and order priority: filtered lineitem joined to
+    orders, conditional counts per ship mode."""
+    li = pn.FilterNode(
+        P.And(P.And(P.In(ref(4, dt.STRING),
+                         [Literal(m) for m in Q12_MODES]),
+                    P.LessThan(ref(2, dt.DATE), ref(3, dt.DATE))),
+              P.And(P.LessThan(ref(1, dt.DATE), ref(2, dt.DATE)),
+                    P.And(P.GreaterThanOrEqual(ref(3, dt.DATE),
+                                               _date(Q12_FROM)),
+                          P.LessThan(ref(3, dt.DATE), _date(Q12_TO))))),
+        _scan(lineitem, ["l_orderkey", "l_shipdate", "l_commitdate",
+                         "l_receiptdate", "l_shipmode"]))
+    # [o_orderkey 0, o_orderpriority 1, l_orderkey 2, ..., l_shipmode 6]
+    j = pn.JoinNode("inner", _scan(orders, ["o_orderkey",
+                                            "o_orderpriority"]),
+                    li, [0], [0])
+    is_high = P.In(ref(1, dt.STRING), [Literal(p) for p in Q12_HIGH])
+    proj = pn.ProjectNode(
+        [Alias(ref(6, dt.STRING), "l_shipmode"),
+         Alias(If(is_high, Literal(1), Literal(0)), "high"),
+         Alias(If(is_high, Literal(0), Literal(1)), "low")], j)
+    agg = pn.AggregateNode(
+        [ref(0, dt.STRING)],
+        [pn.AggCall(Sum(ref(1, dt.INT64)), "high_line_count"),
+         pn.AggCall(Sum(ref(2, dt.INT64)), "low_line_count")],
+        proj, grouping_names=["l_shipmode"])
+    return pn.SortNode([SortKeySpec.spark_default(0)], agg)
 
 
 def q14(lineitem: Table, part: Table) -> pn.PlanNode:
@@ -118,8 +252,8 @@ def q14_numpy(lineitem: Table, part: Table) -> Table:
     known = np.zeros(size, dtype=bool)
     known[pk] = True
     promo = np.zeros(size, dtype=bool)
-    promo[pk] = np.char.startswith(
-        np.asarray(part["p_type"]).astype(str), "PROMO")
+    promo[pk] = _entries(part["p_type"], lambda e: np.char.startswith(
+        e, "PROMO"))
     hit = known[key]
     total = rev[hit].sum()
     value = None if not hit.any() or total == 0 else \
@@ -132,7 +266,7 @@ def q22_numpy(customer: Table, orders: Table) -> Table:
     """q22 in plain numpy: per country code, the selected customers whose
     balance exceeds the selection's average positive balance and who
     have no order."""
-    cc = np.asarray(customer["c_phone"]).astype("U2")
+    cc = _entries(customer["c_phone"], lambda e: e.astype("U2"))
     bal = customer["c_acctbal"]
     sel = np.isin(cc, Q22_CODES)
     positive = sel & (bal > 0.0)
@@ -147,3 +281,120 @@ def q22_numpy(customer: Table, orders: Table) -> Table:
             "totacctbal": np.bincount(inv, weights=bal[keep],
                                       minlength=len(codes)
                                       ).astype(np.float64)}
+
+
+# -- oracles of q1, q3, q6 and q12 -------------------------------------------
+
+
+def _entries(col: HostStrings, fn) -> np.ndarray:
+    """``fn`` over the dictionary's entries (a str array), per row."""
+    return fn(col.dictionary.astype(str))[col.codes]
+
+
+def _is(col: HostStrings, values) -> np.ndarray:
+    """Per row: whether the string is one of ``values``."""
+    return _entries(col, lambda e: np.isin(e, list(values)))
+
+
+def _lookup(keys: np.ndarray, values: np.ndarray, fill) -> np.ndarray:
+    """A dense table over non-negative keys: ``out[keys] = values``, the
+    rest ``fill``."""
+    out = np.full(int(keys.max(initial=0)) + 1, fill, dtype=values.dtype)
+    out[keys] = values
+    return out
+
+
+def q1_numpy(lineitem: Table) -> Table:
+    """q1 in plain numpy: per (returnflag, linestatus) in string order."""
+    live = lineitem["l_shipdate"] <= days(Q1_SHIPPED_BY)
+    rf, ls = lineitem["l_returnflag"], lineitem["l_linestatus"]
+    # the dictionaries are sorted, so code order is string order
+    pair = rf.codes[live].astype(np.int64) * len(ls.dictionary) + \
+        ls.codes[live]
+    # the (few) pairs present, in order, and each row's group
+    groups = np.flatnonzero(np.bincount(
+        pair, minlength=len(rf.dictionary) * len(ls.dictionary)))
+    inv = np.searchsorted(groups, pair)
+    qty = lineitem["l_quantity"][live]
+    price = lineitem["l_extendedprice"][live]
+    disc = lineitem["l_discount"][live]
+    disc_price = price * (1.0 - disc)
+    charge = disc_price * (1.0 + lineitem["l_tax"][live])
+    count = np.bincount(inv, minlength=len(groups))
+
+    def total(x):
+        return np.bincount(inv, weights=x, minlength=len(groups))
+
+    return {"l_returnflag": rf.dictionary[groups // len(ls.dictionary)],
+            "l_linestatus": ls.dictionary[groups % len(ls.dictionary)],
+            "sum_qty": total(qty), "sum_base_price": total(price),
+            "sum_disc_price": total(disc_price),
+            "sum_charge": total(charge), "avg_qty": total(qty) / count,
+            "avg_price": total(price) / count,
+            "avg_disc": total(disc) / count,
+            "count_order": count.astype(np.int64)}
+
+
+def q6_numpy(lineitem: Table) -> Table:
+    """q6 in plain numpy: one row, None when no row passes."""
+    d, disc = lineitem["l_shipdate"], lineitem["l_discount"]
+    live = ((d >= days(Q6_FROM)) & (d < days(Q6_TO)) & (disc >= 0.05) &
+            (disc <= 0.07) & (lineitem["l_quantity"] < 24.0))
+    if not live.any():
+        return {"revenue": np.array([None], dtype=object)}
+    return {"revenue": np.array([(lineitem["l_extendedprice"][live] *
+                                  disc[live]).sum()])}
+
+
+def q3_numpy(customer: Table, orders: Table, lineitem: Table) -> Table:
+    """q3 in plain numpy: order keys are unique, so each lineitem row
+    looks its order (and the order its customer) up by key."""
+    building = _lookup(customer["c_custkey"],
+                       _is(customer["c_mktsegment"], [Q3_SEGMENT]), False)
+    ok = orders["o_orderdate"] < days(Q3_DATE)
+    cust = orders["o_custkey"]
+    ok &= (cust < len(building)) & building[np.minimum(cust,
+                                                       len(building) - 1)]
+    okey = orders["o_orderkey"]
+    order_at = _lookup(okey[ok], np.flatnonzero(ok), -1)
+    li = lineitem["l_shipdate"] > days(Q3_DATE)
+    lk = lineitem["l_orderkey"]
+    at = np.full(len(lk), -1, dtype=np.int64)
+    inside = li & (lk < len(order_at))
+    at[inside] = order_at[lk[inside]]
+    hit = at >= 0
+    rev = lineitem["l_extendedprice"][hit] * \
+        (1.0 - lineitem["l_discount"][hit])
+    keys, inv = np.unique(lk[hit], return_inverse=True)
+    sums = np.bincount(inv, weights=rev, minlength=len(keys))
+    first = at[hit][np.unique(inv, return_index=True)[1]]
+    date = orders["o_orderdate"][first]
+    top = np.lexsort((date, -sums))[:10]
+    return {"l_orderkey": keys[top], "o_orderdate": date[top],
+            "o_shippriority": orders["o_shippriority"][first][top],
+            "revenue": sums[top]}
+
+
+def q12_numpy(orders: Table, lineitem: Table) -> Table:
+    """q12 in plain numpy: per ship mode in string order, the matched
+    lines of urgent or high priority orders and of the rest."""
+    ship, commit = lineitem["l_shipdate"], lineitem["l_commitdate"]
+    receipt = lineitem["l_receiptdate"]
+    mode = lineitem["l_shipmode"]
+    live = (_is(mode, Q12_MODES) & (commit < receipt) & (ship < commit) &
+            (receipt >= days(Q12_FROM)) & (receipt < days(Q12_TO)))
+    high = _lookup(orders["o_orderkey"],
+                   _is(orders["o_orderpriority"], Q12_HIGH).astype(np.int8),
+                   -1)
+    lk = lineitem["l_orderkey"][live]
+    h = np.where(lk < len(high), high[np.minimum(lk, len(high) - 1)], -1)
+    codes = mode.codes[live][h >= 0]
+    h = h[h >= 0]
+    groups, inv = np.unique(codes, return_inverse=True)
+    return {"l_shipmode": mode.dictionary[groups],
+            "high_line_count": np.bincount(inv, weights=h,
+                                           minlength=len(groups)
+                                           ).astype(np.int64),
+            "low_line_count": np.bincount(inv, weights=1 - h,
+                                          minlength=len(groups)
+                                          ).astype(np.int64)}

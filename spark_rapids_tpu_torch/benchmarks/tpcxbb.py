@@ -65,7 +65,7 @@ def q26_numpy(store_sales: Dict[str, np.ndarray],
     """The same query in plain numpy: look up each sale's item (item keys
     are unique), keep Books, count per customer and class."""
     sk = np.asarray(item["i_item_sk"], dtype=np.int64)
-    books = np.asarray(item["i_category"]) == "Books"
+    books = item["i_category"].to_objects() == "Books"
     size = int(max(sk.max(initial=0),
                    store_sales["ss_item_sk"].max(initial=0))) + 1
     is_book = np.zeros(size, dtype=bool)

@@ -10,7 +10,8 @@ Each query runs once to warm up, then ``--repeat`` times, each run
 through apply_overrides -> collect ending in a synchronize. The plans
 come from ``profile_query._plan_fn`` of the tree being timed, which
 every tree of the port has had since TPC-H q14 and q22 (q91, through
-``Session.sql``, since the SQL front end). Prints one JSON
+``Session.sql``, since the SQL front end; q1, q3, q6 and q12 since
+host-encoded strings). Prints one JSON
 line per query with the card's name and power limit. Needs a CUDA
 device.
 """
@@ -31,7 +32,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q26", "q14", "q22", "q91"),
+    ap.add_argument("--query", choices=("q26", "q14", "q22", "q91", "q1", "q3",
+                                      "q6", "q12"),
                     action="append")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--repeat", type=int, default=3)

@@ -103,7 +103,8 @@ def batch_from_numpy(columns: Sequence[np.ndarray],
             valid = np.asarray(validities[i], dtype=bool)[:n]
         dic = dictionaries[i] if dictionaries is not None else None
         if t is dt.STRING and dic is not None:
-            codes = torch.from_numpy(vals.astype(np.int32)).to(device)
+            codes = torch.from_numpy(
+                vals.astype(np.int32, copy=False)).to(device)
             vt = None if valid is None else torch.from_numpy(
                 valid.copy()).to(device)
             cols.append(StringColumn(codes, np.asarray(dic, dtype=object),

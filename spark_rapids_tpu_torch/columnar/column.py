@@ -9,7 +9,8 @@ the host, so code order is string order.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,20 +97,39 @@ class Column:
                 f"nulls={'?' if self.validity is not None else 'no'})")
 
 
+_DICT_CACHES: Dict[int, Tuple[weakref.ref, dict]] = {}
+
+
+def dictionary_cache(dictionary: np.ndarray) -> dict:
+    """A dict for what is derived from one dictionary object (its
+    entries' hashes, its char table on a device), shared by every column
+    that holds that object, as every batch of a ``HostStrings`` scan
+    does; it goes when the dictionary does."""
+    key = id(dictionary)
+    hit = _DICT_CACHES.get(key)
+    if hit is not None and hit[0]() is dictionary:
+        return hit[1]
+
+    def drop(ref, key=key):
+        if key in _DICT_CACHES and _DICT_CACHES[key][0] is ref:
+            del _DICT_CACHES[key]
+
+    store: dict = {}
+    _DICT_CACHES[key] = (weakref.ref(dictionary, drop), store)
+    return store
+
+
 class StringColumn(Column):
     """int32 codes into ``dictionary``, a host object array of unique
-    strings sorted ascending."""
+    strings sorted ascending. What is derived from the dictionary is
+    cached per dictionary object (``dictionary_cache``)."""
 
-    __slots__ = ("dictionary", "_dict_hashes", "_char_table")
+    __slots__ = ("dictionary",)
 
     def __init__(self, codes: torch.Tensor, dictionary: np.ndarray,
                  validity: Optional[torch.Tensor] = None):
         super().__init__(dt.STRING, codes, validity)
         self.dictionary = dictionary
-        self._dict_hashes = None  # ops.hashing.dict_hashes cache
-        # kernels.strings.char_table cache: one slot shared with every
-        # column _like derives, so a build side's gathers share one table
-        self._char_table = [None]
 
     @staticmethod
     def from_strings(values: Sequence[Optional[str]],
@@ -134,10 +154,7 @@ class StringColumn(Column):
                             np.asarray(dictionary, dtype=object), vmask)
 
     def _like(self, data, validity) -> "StringColumn":
-        out = StringColumn(data, self.dictionary, validity)
-        out._dict_hashes = self._dict_hashes
-        out._char_table = self._char_table
-        return out
+        return StringColumn(data, self.dictionary, validity)
 
     def to_numpy(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         codes, validity = Column.to_numpy(self)
@@ -156,8 +173,10 @@ def unify_dictionaries(cols: List[StringColumn]) -> List[StringColumn]:
     """The columns re-encoded onto one shared sorted dictionary (the
     reference's ``unify_dictionaries``): the merge of the dictionaries
     runs on the host, the remap of the codes is a gather on the device.
-    A column whose dictionary already is the merged one keeps its codes."""
-    if not cols:
+    A column whose dictionary already is the merged one keeps its codes,
+    and columns that share one dictionary object come back as they are
+    (no merge on the host)."""
+    if not cols or all(c.dictionary is cols[0].dictionary for c in cols):
         return cols
     merged = np.unique(np.concatenate([
         c.dictionary.astype(str) if len(c.dictionary) else

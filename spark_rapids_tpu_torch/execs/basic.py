@@ -12,12 +12,16 @@ from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch, Schema,
 from spark_rapids_tpu_torch.execs.base import TorchExec
 from spark_rapids_tpu_torch.expressions.base import (EvalContext,
                                                      Expression, broadcast)
+from spark_rapids_tpu_torch.io.hoststrings import HostStrings
 from spark_rapids_tpu_torch.ops.filter import compact_batch
 from spark_rapids_tpu_torch.plan.nodes import InMemorySource
 
 
 class ScanExec(TorchExec):
-    """Host columns uploaded in slices of ``batch_rows`` rows."""
+    """Host columns uploaded in slices of ``batch_rows`` rows. A string
+    column (a ``HostStrings`` in the source) uploads a slice of its codes
+    (0 where the row is null), and every batch shares its one dictionary
+    object."""
 
     def __init__(self, source: InMemorySource, schema: Schema,
                  batch_rows: int, device):
@@ -32,14 +36,24 @@ class ScanExec(TorchExec):
             yield ColumnarBatch.empty(self.schema, self.device)
             return
         data, validity = self.source.data, self.source.validity
+        names = self.schema.names
+        dics = [data[name].dictionary
+                if isinstance(data[name], HostStrings) else None
+                for name in names]
         for lo in range(0, n, self.batch_rows):
             hi = min(lo + self.batch_rows, n)
-            cols = [np.asarray(data[name])[lo:hi]
-                    for name in self.schema.names]
             valids = [None if validity.get(name) is None else
-                      np.asarray(validity[name])[lo:hi]
-                      for name in self.schema.names]
-            yield batch_from_numpy(cols, self.schema.types, valids,
+                      np.asarray(validity[name], dtype=bool)[lo:hi]
+                      for name in names]
+            cols = []
+            for name, dic, v in zip(names, dics, valids):
+                if dic is None:
+                    cols.append(np.asarray(data[name])[lo:hi])
+                else:
+                    codes = data[name].codes[lo:hi]
+                    cols.append(codes if v is None else
+                                np.where(v, codes, 0))
+            yield batch_from_numpy(cols, self.schema.types, valids, dics,
                                    device=self.device)
 
 

@@ -10,9 +10,12 @@ operand and a result that are subnormal count as a zero of their sign
 they are, as XLA's constant folder does. What XLA rewrites before it
 runs (literal chains, division by a literal, identities, fused
 multiply-adds) is rewritten once per plan by ``expressions.folding``,
-which makes the ``Identity`` and ``MultiplyAdd`` nodes below.
+which makes the ``Identity``, ``Zero`` and ``MultiplyAdd`` nodes
+below.
 """
 from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -114,14 +117,24 @@ class Divide(Expression):
                     validity)
 
 
+def _nulls(vals) -> Tuple[bool, Optional[torch.Tensor]]:
+    """(any value a null scalar, the AND of the columns' validities)."""
+    if any(isinstance(v, Scalar) and v.is_null for v in vals):
+        return True, None
+    return False, and_validity(*(value_validity(v) for v in vals))
+
+
 class Identity(Expression):
     """What XLA leaves of ``x + 0`` and ``x * 1``: x converted to the
     operation's type and untouched, subnormals and -0.0 included; with
-    ``negate``, what LLVM makes of ``x * -1`` and ``-0.0 - x``: -x."""
+    ``negate``, what LLVM makes of ``x * -1`` and ``-0.0 - x``: -x. The
+    rows of ``nulls_of`` (the zero of ``x + (i - i)``) are null where
+    they are: XLA drops the zero from the data, not from the validity."""
 
     def __init__(self, child: Expression, dtype: dt.DType,
-                 negate: bool = False):
-        super().__init__([child])
+                 negate: bool = False,
+                 nulls_of: Sequence[Expression] = ()):
+        super().__init__([child, *nulls_of])
         self._dtype = dtype
         self.negate = negate
 
@@ -130,15 +143,45 @@ class Identity(Expression):
         return self._dtype
 
     def eval(self, ctx: EvalContext) -> EvalValue:
-        v = self.children[0].eval(ctx)
-        if isinstance(v, Scalar) and v.is_null:
+        vals = [c.eval(ctx) for c in self.children]
+        null, validity = _nulls(vals)
+        if null:
             return Scalar(self._dtype, None)
+        v = vals[0]
         data = operand(v).to(self._dtype.torch_dtype)
         if self.negate:
             data = -data
-        if isinstance(v, Scalar):
+        if all(isinstance(x, Scalar) for x in vals):
             return _scalar_result(self._dtype, data)
-        return ColV(self._dtype, data, v.validity)
+        if isinstance(v, Scalar):
+            data = data.expand(ctx.num_rows).contiguous()
+        return ColV(self._dtype, data, validity)
+
+
+class Zero(Expression):
+    """What XLA makes of integer ``x - x`` and ``x * 0``: a zero of
+    ``dtype`` in the data, null where any of ``sources`` is null (the
+    reference keeps the validity apart from the folded data)."""
+
+    value = 0
+
+    def __init__(self, dtype: dt.DType, sources: Sequence[Expression]):
+        super().__init__(sources)
+        self._dtype = dtype
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self._dtype
+
+    def eval(self, ctx: EvalContext) -> EvalValue:
+        null, validity = _nulls([c.eval(ctx) for c in self.children])
+        if null:
+            return Scalar(self._dtype, None)
+        if validity is None:
+            return Scalar(self._dtype, 0)
+        return ColV(self._dtype, torch.zeros(
+            ctx.num_rows, dtype=self._dtype.torch_dtype, device=ctx.device),
+            validity)
 
 
 class MultiplyAdd(Expression):

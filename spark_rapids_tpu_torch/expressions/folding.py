@@ -15,6 +15,10 @@ tries them at one operation:
   right; ``x / c`` is ``x * (1 / c)`` for every nonzero literal ``c``
   (``x / 0`` stays a division: null); ``(a / b) / c`` is ``a / (b * c)``
   for any other ``c``.
+- integer ``x - x`` (one column twice), ``x * 0`` and ``0 * x`` are a
+  zero that keeps the nulls of x (``arithmetic.Zero``); from the next
+  pass on it is a constant, so ``d + (i - i)`` is d untouched, null
+  where i is.
 - ``(x + c1) + c2`` is ``x + (c1 + c2)``, ``(c1 - x) + c2`` is
   ``(c1 + c2) - x``, and ``(x * c1) * c2`` is ``x * (c1 * c2)``.
   Nothing else reassociates: ``c2 - (x + c1)``, ``c / x``, and a chain
@@ -124,13 +128,19 @@ def _rule(e: Expression, converted: bool) -> Optional[Expression]:
     ``e`` is not a constant."""
 
     def const(x: Expression) -> bool:
+        if isinstance(x, ar.Zero):
+            return converted
         return _literal(x) and (converted or x.dtype is e.dtype)
+
+    zero = _integer_zero(e)
+    if zero is not None:
+        return zero
 
     if isinstance(e, ar.Divide):
         x, c = e.children[0], e.children[-1]
         if len(e.children) == 2 and const(c) and not _literal(x):
             if c.value == 1:
-                return _identity(x, e)
+                return _identity(x, e, c)
             if c.value != 0:
                 return ar.Multiply(x, _const(e, np.divide, Literal(1.0), c))
         if isinstance(x, ar.Divide) and \
@@ -145,12 +155,12 @@ def _rule(e: Expression, converted: bool) -> Optional[Expression]:
         return None
     unit = 1 if isinstance(e, ar.Multiply) else 0
     if const(y) and y.value == unit:
-        return _identity(x, e)
+        return _identity(x, e, y)
     if isinstance(e, ar.Subtract):
         return ar.Add(x, ar.Multiply(y, Literal(-1.0, e.dtype))) \
-            if const(y) else None
+            if const(y) and not isinstance(y, ar.Zero) else None
     if const(x) and x.value == unit:
-        return _identity(y, e)
+        return _identity(y, e, x)
     if const(x):
         return type(e)(y, x)
     if not const(y):
@@ -169,10 +179,39 @@ def _rule(e: Expression, converted: bool) -> Optional[Expression]:
     return None
 
 
-def _identity(x: Expression, e: Expression) -> Expression:
+def _identity(x: Expression, e: Expression, unit: Expression
+              ) -> Expression:
     """What XLA leaves of ``e`` = ``x + 0`` or ``x * 1``: x itself, or x
-    converted to ``e``'s type."""
-    return x if x.dtype is e.dtype else ar.Identity(x, e.dtype)
+    converted to ``e``'s type; null where ``unit`` is, when it is a
+    ``Zero``."""
+    nulls = [unit] if isinstance(unit, ar.Zero) else []
+    if isinstance(x, ar.Zero):
+        return ar.Zero(e.dtype, x.children + nulls)
+    if x.dtype is e.dtype and not nulls:
+        return x
+    return ar.Identity(x, e.dtype, nulls_of=nulls)
+
+
+def _integer_zero(e: Expression) -> Optional[Expression]:
+    """The ``Zero`` XLA makes of integer ``x - x`` (one column twice) and
+    ``x * 0`` / ``0 * x`` (a ``Zero`` is a 0 here too), else None."""
+    if not (isinstance(e, (ar.Subtract, ar.Multiply)) and
+            e.dtype.is_integral):
+        return None
+    x, y = e.children
+    if isinstance(e, ar.Subtract):
+        same = isinstance(x, BoundReference) and \
+            isinstance(y, BoundReference) and x.ordinal == y.ordinal
+        return ar.Zero(e.dtype, [x]) if same else None
+
+    def nulls(k: Expression):
+        return list(k.children) if isinstance(k, ar.Zero) else \
+            [] if _literal(k) else [k]
+
+    for z, other in ((y, x), (x, y)):
+        if isinstance(z, ar.Zero) or (_literal(z) and z.value == 0):
+            return ar.Zero(e.dtype, nulls(z) + nulls(other))
+    return None
 
 
 def _key(e: Expression):

@@ -103,20 +103,23 @@ def table_from_reference(chars: np.ndarray, lens: np.ndarray,
 
 def char_table(scol) -> Optional[CharTable]:
     """The char table of a StringColumn's dictionary on the column's
-    device, encoded once per dictionary; None for an empty dictionary or
-    one the encoder refuses."""
-    cached = scol._char_table[0]
-    if cached is not None and cached[0] is scol.dictionary:
-        return cached[1]
-    table = None
-    if len(scol.dictionary):
-        enc = encode_dictionary(scol.dictionary)
-        if enc is not None:
-            dev = scol.device
-            table = CharTable(torch.from_numpy(enc[0]).to(dev),
-                              torch.from_numpy(enc[1]).to(dev), enc[2])
-    scol._char_table[0] = (scol.dictionary, table)
-    return table
+    device, encoded once per dictionary and device (every batch of a
+    scan shares it); None for an empty dictionary or one the encoder
+    refuses."""
+    from spark_rapids_tpu_torch.columnar.column import dictionary_cache
+
+    cache = dictionary_cache(scol.dictionary)
+    key = ("char_table", str(scol.device))
+    if key not in cache:
+        table = None
+        if len(scol.dictionary):
+            enc = encode_dictionary(scol.dictionary)
+            if enc is not None:
+                dev = scol.device
+                table = CharTable(torch.from_numpy(enc[0]).to(dev),
+                                  torch.from_numpy(enc[1]).to(dev), enc[2])
+        cache[key] = table
+    return cache[key]
 
 
 # -- K4 ----------------------------------------------------------------------

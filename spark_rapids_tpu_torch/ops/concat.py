@@ -1,9 +1,11 @@
 """Batch concatenation (the counterpart of spark_rapids_tpu/ops/concat.py).
 
-String columns are first re-encoded onto one dictionary
-(``unify_dictionaries``): every scan batch builds its own sorted
-dictionary, so any build, sort or aggregate merge over more than one
-batch meets columns whose codes mean different strings.
+String columns whose dictionaries differ are first re-encoded onto one
+(``unify_dictionaries``): a scan of object-array strings builds a sorted
+dictionary per batch, and so does substring, so a build, sort or
+aggregate merge over more than one batch can meet columns whose codes
+mean different strings. The batches of a ``HostStrings`` scan share one
+dictionary object and are joined as they are.
 """
 from __future__ import annotations
 

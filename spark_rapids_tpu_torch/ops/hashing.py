@@ -18,7 +18,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import StringColumn
+from spark_rapids_tpu_torch.columnar.column import (StringColumn,
+                                                    dictionary_cache)
 from spark_rapids_tpu_torch.ops import sortkeys
 
 _NULL_HASH = 42  # Spark HashPartitioning leaves the seed for nulls
@@ -48,15 +49,17 @@ def fnv1a64(s: str) -> int:
     return _signed(h)
 
 
-def dict_hashes(col: StringColumn) -> np.ndarray:
-    """int64 content hash per dictionary entry (cached on the column)."""
-    cached = col._dict_hashes
-    if cached is not None and len(cached) == len(col.dictionary):
-        return cached
-    h = np.array([fnv1a64(str(s)) for s in col.dictionary], dtype=np.int64) \
-        if len(col.dictionary) else np.zeros(1, dtype=np.int64)
-    col._dict_hashes = h
-    return h
+def dict_hashes(col: StringColumn) -> torch.Tensor:
+    """int64 content hash per dictionary entry on the column's device,
+    computed once per dictionary and device."""
+    cache = dictionary_cache(col.dictionary)
+    key = ("hashes", str(col.device))
+    if key not in cache:
+        h = np.array([fnv1a64(str(s)) for s in col.dictionary],
+                     dtype=np.int64) \
+            if len(col.dictionary) else np.zeros(1, dtype=np.int64)
+        cache[key] = torch.from_numpy(h).to(col.device)
+    return cache[key]
 
 
 def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -109,7 +112,7 @@ def hash_columns(batch: ColumnarBatch, key_ordinals: List[int],
     for o in key_ordinals:
         c = batch.columns[o]
         if isinstance(c, StringColumn):
-            h_tab = torch.from_numpy(dict_hashes(c)).to(c.device)
+            h_tab = dict_hashes(c)
             val = h_tab[c.data.to(torch.int64).clamp(0, h_tab.shape[0] - 1)]
         else:
             val = _numeric_to_int64(c.data, dtypes[o])

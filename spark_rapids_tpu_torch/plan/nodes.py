@@ -14,6 +14,7 @@ from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.expressions.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.expressions.base import Alias, Expression
+from spark_rapids_tpu_torch.io.hoststrings import HostStrings
 from spark_rapids_tpu_torch.ops.sortkeys import SortKeySpec
 
 
@@ -33,16 +34,23 @@ class PlanNode:
 
 
 class InMemorySource:
-    """Host-resident columns: ``data`` maps name -> numpy array (object
-    arrays for strings, None = null), ``validity`` name -> bool mask."""
+    """Host-resident columns: ``data`` maps name -> numpy array, or for
+    strings a ``HostStrings`` (codes into one sorted dictionary) or an
+    object array (None = null), which is encoded here once as a
+    ``HostStrings``; ``validity`` name -> bool mask."""
 
     def __init__(self, data: dict, schema: Optional[Schema] = None,
                  validity: Optional[dict] = None):
-        self.data = data
-        self.validity = validity or {}
         self._schema = schema or Schema(
-            list(data), [dt.from_numpy(np.asarray(v).dtype)
+            list(data), [dt.STRING if isinstance(v, HostStrings) else
+                         dt.from_numpy(np.asarray(v).dtype)
                          for v in data.values()])
+        self.data, self.validity = dict(data), dict(validity or {})
+        for name, t in zip(self._schema.names, self._schema.types):
+            v = self.data[name]
+            if t is dt.STRING and not isinstance(v, HostStrings):
+                self.data[name], self.validity[name] = _encode(
+                    v, self.validity.get(name))
 
     def schema(self) -> Schema:
         return self._schema
@@ -51,6 +59,20 @@ class InMemorySource:
         for v in self.data.values():
             return len(v)
         return 0
+
+
+def _encode(values, validity):
+    """An object string column as ``HostStrings`` and its validity (None
+    rows and rows masked invalid are null, with code 0); None when every
+    row is valid."""
+    arr = np.asarray(values, dtype=object)
+    null = np.array([v is None for v in arr], dtype=bool)
+    if validity is not None:
+        null |= ~np.asarray(validity, dtype=bool)
+    if null.any():
+        arr = arr.copy()
+        arr[null] = None
+    return HostStrings.from_objects(arr), (~null if null.any() else None)
 
 
 class ScanNode(PlanNode):

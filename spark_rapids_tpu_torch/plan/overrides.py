@@ -1,9 +1,12 @@
 """Plan -> exec conversion (the counterpart of
 spark_rapids_tpu/plan/overrides.py with fusion and adaptive execution
 off). Each ported node type converts to its exec; any other node raises.
-Every expression passes through ``expressions.folding.fold`` on its way,
-so each exec computes what the reference's XLA backend computes. Tagging
-and CPU fallback are not ported.
+First, as the reference's default optimizer does, each chain of three
+or more inner joins is put in its greedy order (``plan/optimizer``), so
+the build sides are the ones the reference builds. Every expression
+passes through ``expressions.folding.fold`` on its way, so each exec
+computes what the reference's XLA backend computes. Tagging and CPU
+fallback are not ported.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from spark_rapids_tpu_torch.execs.joins import (KIND_MAP,
 from spark_rapids_tpu_torch.execs.sort import SortExec
 from spark_rapids_tpu_torch.expressions.folding import fold
 from spark_rapids_tpu_torch.plan import nodes as pn
+from spark_rapids_tpu_torch.plan.optimizer import reorder_joins
 
 #: rows per uploaded scan batch (the reference's
 #: rapids.tpu.sql.reader.batchSizeRows, same key and default)
@@ -33,7 +37,7 @@ def apply_overrides(plan: pn.PlanNode, conf: Optional[dict] = None,
     unknown = set(conf) - set(_DEFAULTS)
     if unknown:
         raise ValueError(f"unknown conf keys: {sorted(unknown)}")
-    return _convert(plan, conf, device)
+    return _convert(reorder_joins(plan), conf, device)
 
 
 def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:

@@ -438,3 +438,32 @@ def test_session_sql_launches_like_table():
     assert list(got["k"]) == list(expect["k"])
     assert list(got["n"]) == list(expect["n"])
     np.testing.assert_allclose(got["sv"], expect["sv"], rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["q1", "q12"])
+def test_tpch_host_string_query_card_equals_cpu(query):
+    """TPC-H q1 and q12 at sf 0.1 over ``HostStrings`` tables on the card
+    and on the CPU: strings and counts equal, float sums and averages
+    within 1e-9 relative; the partition kernel (and q12's probe) run."""
+    from spark_rapids_tpu_torch.benchmarks import datagen, tpch
+    from spark_rapids_tpu_torch.execs.base import collect
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+
+    dev = _card()
+    lineitem = datagen.gen_lineitem(0.1)
+    args = (lineitem,) if query == "q1" else \
+        (datagen.gen_orders(0.1), lineitem)
+    plan = getattr(tpch, query)
+    nk.reset_launches()
+    got = collect(apply_overrides(plan(*args), device=dev))
+    assert nk.LAUNCHES["partition_order"] >= 1
+    if query == "q12":
+        assert nk.LAUNCHES["probe"] >= 1
+    want = collect(apply_overrides(plan(*args), device="cpu"))
+    assert list(got) == list(want) and len(want[next(iter(want))]) > 0
+    for name, w in want.items():
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got[name], w, rtol=1e-9, atol=0)
+        else:
+            assert list(got[name]) == list(w), name

@@ -9,7 +9,8 @@ multiply-add. The same SQL runs through ``spark_rapids_tpu.api.Session``
 "cpu")`` over the same seeded table, and every float is compared by its
 bit pattern. The table is 200 seeded doubles ``standard_normal * 10**k``
 (k from -5 to 4) plus ``1e-310, -0.0, 1e308, -1e308, 3.0, 0.1`` and the
-subnormal test's rows ``1e-310, 0.0, 1.5, -1e-310, 1e-300, -0.0, nan``.
+subnormal test's rows ``1e-310, 0.0, 1.5, -1e-310, 1e-300, -0.0, nan``,
+with an integer column ``j`` that is null on every fifth row.
 
 All projected cases run as one query per engine, one column per case;
 each column gives the reference the same bits as it does alone (XLA
@@ -110,7 +111,41 @@ _NULLABLE = {
     "float_times_int_zero": "f * (j * 0)",
 }
 
+# integer zeros in a float add: XLA folds ``i - i`` and ``i * 0`` to 0,
+# then drops that 0 from the add, so ``d + (i - i)`` is d untouched
+# (-0.0 and subnormals included), null where i is (t's j has nulls)
+_INTEGER_ZERO = {
+    "d_plus_i_minus_i": "d + (i - i)",
+    "i_minus_i_plus_d": "(i - i) + d",
+    "d_minus_i_times_zero": "d - (i * 0)",
+    "d_times_one_plus_j_minus_j": "d * 1 + (j - j)",
+    "d_minus_zero_times_j": "d - (0 * j)",
+    "j_times_zero_plus_d": "(j * 0) + d",
+    "product_plus_int_zero": "d * e + (i * 0)",
+    "product_literal_plus_j_minus_j": "d * 0.3 + (j - j)",
+    "int_zero_times_one_plus_d": "(i - i) * 1.0 + d",
+    "d_plus_int_zero_times_two": "d + (i - i) * 2",
+    "int_zero_minus_d": "(j - j) - d",
+    "d_times_int_zero": "d * (j - j)",
+    "two_int_zeros": "d + (i - i) - (j * 0)",
+    "sum_minus_itself_unfolded": "d + ((i + 1) - (i + 1))",
+}
+
+# the same zeros in sum inputs, one grouped query
+_INTEGER_ZERO_SUMS = {
+    "sum_d_plus_i_minus_i": "sum(d + (i - i))",
+    "sum_i_minus_i_plus_d": "sum((i - i) + d)",
+    "sum_d_minus_i_times_zero": "sum(d - (i * 0))",
+    "sum_d_times_one_plus_j_minus_j": "sum(d * 1 + (j - j))",
+}
+
 _QUERIES = {
+    "where_d_plus_i_minus_i": "SELECT i FROM t WHERE d + (i - i) > 0.0",
+    "where_i_minus_i_plus_d": "SELECT i FROM t WHERE (i - i) + d < 0.0",
+    "where_d_minus_i_times_zero":
+        "SELECT i FROM t WHERE d - (i * 0) >= 0.0",
+    "where_d_times_one_plus_j_minus_j":
+        "SELECT i FROM t WHERE d * 1 + (j - j) <= 0.0",
     "where_int_times_zero": "SELECT f FROM n WHERE j * 0 = 0",
     "where_int_minus_itself": "SELECT f FROM n WHERE j - j < 1",
     "where_multiply_add": "SELECT i FROM t WHERE d * 0.3 + 0.1 > 0.5",
@@ -137,6 +172,8 @@ _AGGREGATED = {
 
 _CASES = sorted([(f, c) for f, cases in _PROJECTED.items() for c in cases] +
                 [("nullable", c) for c in _NULLABLE] +
+                [("integer_zero", c) for c in _INTEGER_ZERO] +
+                [("integer_zero_sum", c) for c in _INTEGER_ZERO_SUMS] +
                 [("query", c) for c in _QUERIES] +
                 [("aggregate", c) for c in _AGGREGATED])
 
@@ -153,12 +190,14 @@ def _tables():
          "i": rng.integers(-1000, 1000, n).astype(np.int64),
          "e": rng.standard_normal(n) * 10.0 ** rng.integers(-3, 3, n),
          "g": (np.arange(n) % 69).astype(np.int64)}
+    t["j"] = t["i"] % 97
     u = {"k": np.arange(69, dtype=np.int64), "w": rng.standard_normal(69)}
     m = {"j": rng.integers(-50, 50, 40).astype(np.int64),
          "f": np.concatenate([rng.standard_normal(36),
                               [-0.0, 1e-310, -2.5, np.nan]])}
     valid = {"j": np.arange(40) % 3 != 1}
-    return {"t": (t, None), "u": (u, None), "n": (m, valid)}
+    return {"t": (t, {"j": np.arange(n) % 5 != 2}), "u": (u, None),
+            "n": (m, valid)}
 
 
 class _Engines:
@@ -226,10 +265,19 @@ def test_float_folding_matches_reference_engine_bit_for_bit(engines, family,
         assert want[k].count(None) > 0
         assert [_cell(x) for x in got[k]] == [_cell(x) for x in want[k]]
         return
-    if family == "aggregate":
-        names = sorted(_AGGREGATED)
+    if family == "integer_zero":
+        names = sorted(_INTEGER_ZERO)
+        text = "SELECT " + ", ".join(
+            f"{_INTEGER_ZERO[c]} AS {c}" for c in names) + " FROM t"
+        want, got = engines.run(text)
+        k = names.index(case)
+        assert [_cell(x) for x in got[k]] == [_cell(x) for x in want[k]]
+        return
+    if family in ("aggregate", "integer_zero_sum"):
+        aggs = _AGGREGATED if family == "aggregate" else _INTEGER_ZERO_SUMS
+        names = sorted(aggs)
         text = "SELECT g, " + ", ".join(
-            f"{_AGGREGATED[c]} AS {c}" for c in names) + " FROM t GROUP BY g"
+            f"{aggs[c]} AS {c}" for c in names) + " FROM t GROUP BY g"
         want, got = engines.run(text)
         k = names.index(case) + 1
         assert _rows([got[0], got[k]]) == _rows([want[0], want[k]])

@@ -38,6 +38,7 @@ from spark_rapids_tpu_torch import kernels as tnk  # noqa: E402
 from spark_rapids_tpu_torch.api import Session, col  # noqa: E402
 from spark_rapids_tpu_torch.api import functions as F  # noqa: E402
 from spark_rapids_tpu_torch.benchmarks import tpcds  # noqa: E402
+from spark_rapids_tpu_torch.io.hoststrings import HostStrings  # noqa: E402
 from spark_rapids_tpu_torch.plan import nodes as pn  # noqa: E402
 from spark_rapids_tpu_torch.sql import SqlError, parse, plan_statement  # noqa: E402
 
@@ -132,9 +133,17 @@ def _plan_sig(node):
             tuple(_plan_sig(c) for c in node.children))
 
 
+def _decoded(cols):
+    """The columns with each ``HostStrings`` as an object array, the form
+    the reference's in-memory source takes."""
+    return {k: v.to_objects() if isinstance(v, HostStrings) else v
+            for k, v in cols.items()}
+
+
 def _catalogs(tables):
     """The same columns as a reference and a port catalog."""
-    return ({n: rpn.InMemorySource(dict(cols)) for n, cols in tables.items()},
+    return ({n: rpn.InMemorySource(_decoded(cols))
+             for n, cols in tables.items()},
             {n: pn.InMemorySource(dict(cols)) for n, cols in tables.items()})
 
 
@@ -430,7 +439,7 @@ def test_subnormal_floats_match_reference_engine_bit_for_bit(
 @pytest.mark.parametrize("sf", [0.01, 1])
 @pytest.mark.parametrize("table", sorted(tpcds.Q91_GENERATORS))
 def test_q91_generators_match_reference(table, sf):
-    got = tpcds.Q91_GENERATORS[table](sf)
+    got = _decoded(tpcds.Q91_GENERATORS[table](sf))
     want = rtpcds.GENERATORS[table](sf)
     for name, values in got.items():
         w = want.column(name).to_numpy(zero_copy_only=False)

@@ -1,19 +1,24 @@
-"""TPC-H q14 and q22 through the port against the reference engine.
+"""TPC-H q1, q3, q6, q12, q14 and q22 through the port against the
+reference engine.
 
 The port's numpy generators must give the reference generators' columns
-seed for seed, on the whole-table path and on the chunked one. The
-port's q14 and q22 (apply_overrides -> collect on the CPU) must equal the
-reference engine's, run from the reference's own query functions over
-parquet written from the reference's generators: once with fusion and
-adaptive execution off and the native kernels on (the exec tree the port
-mirrors), once with the default conf. Strings, keys and counts exact,
-float sums within 1e-9 relative (the reference's own tolerance against
-its CPU oracle; the two engines sum in different orders).
+seed for seed, on the whole-table path and on the chunked one (string
+columns come as ``HostStrings`` and are decoded to compare). The port's
+queries (apply_overrides -> collect on the CPU) must equal the reference
+engine's, run from the reference's own query functions over parquet
+written from the reference's generators. q14 and q22 run the reference
+twice: with fusion and adaptive execution off and the native kernels on
+(the exec tree the port mirrors), and with the default conf. q1, q3, q6
+and q12 run it once, unfused, on its default plain path, against the
+port at 256-row scan batches, so many batches share one dictionary.
+Strings, keys and counts exact, float sums within 1e-9 relative (the
+reference's own tolerance against its CPU oracle; the two engines sum in
+different orders).
 
 At sf 0.01 every customer has an order, so q22 is empty; it runs again
 over the first 10% of the orders rows, where the anti join keeps rows and
 the group-by, sort and average run on real data. A small scan batch size
-gives every batch its own string dictionaries.
+splits every scan into many batches.
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ from spark_rapids_tpu.plan.overrides import (  # noqa: E402
 
 from spark_rapids_tpu_torch import kernels as tnk  # noqa: E402
 from spark_rapids_tpu_torch.benchmarks import datagen, tpch  # noqa: E402
+from spark_rapids_tpu_torch.columnar.column import StringColumn  # noqa: E402
 from spark_rapids_tpu_torch.execs.base import collect  # noqa: E402
+from spark_rapids_tpu_torch.io.hoststrings import HostStrings  # noqa: E402
 from spark_rapids_tpu_torch.plan.overrides import (  # noqa: E402
     apply_overrides)
 
@@ -47,19 +54,22 @@ _BATCH = "rapids.tpu.sql.reader.batchSizeRows"
 
 _GENERATORS = {
     "lineitem": (datagen.gen_lineitem, datagen.LINEITEM_COLUMNS),
-    "part": (datagen.gen_part, ["p_partkey", "p_type"]),
-    "customer": (datagen.gen_customer, ["c_custkey", "c_acctbal",
-                                        "c_phone"]),
-    "orders": (datagen.gen_orders, ["o_custkey"])}
+    "part": (datagen.gen_part, datagen.PART_COLUMNS),
+    "customer": (datagen.gen_customer, datagen.CUSTOMER_COLUMNS),
+    "orders": (datagen.gen_orders, datagen.ORDERS_COLUMNS)}
 
 
 def _assert_columns_equal(got: dict, table: pa.Table, columns):
     for name in columns:
         want = table.column(name).to_numpy(zero_copy_only=False)
-        if name == "l_shipdate":
+        if want.dtype.kind == "M":
             want = want.astype("datetime64[D]").astype(np.int64)
-        assert len(got[name]) == len(want), name
-        assert list(got[name]) == list(want), name
+        g = got[name]
+        if isinstance(g, HostStrings):  # decoded to compare
+            assert list(g.dictionary) == sorted(set(g.dictionary)), name
+            g = g.to_objects()
+        assert len(g) == len(want), name
+        assert list(g) == list(want), name
 
 
 @pytest.mark.parametrize("table", sorted(_GENERATORS))
@@ -89,7 +99,7 @@ def _tables(orders_fraction=1.0):
     return {"lineitem": datagen.gen_lineitem(SF),
             "part": datagen.gen_part(SF),
             "customer": datagen.gen_customer(SF),
-            "orders": {"o_custkey": orders["o_custkey"][:n]}}
+            "orders": {k: v[:n] for k, v in orders.items()}}
 
 
 def _write(d, names, orders_fraction=1.0):
@@ -101,22 +111,31 @@ def _write(d, names, orders_fraction=1.0):
         pq.write_table(table, str(d / name / "part-000.parquet"))
 
 
-_QUERIES = {"q14": lambda t: tpch.q14(t["lineitem"], t["part"]),
-            "q22": lambda t: tpch.q22(t["customer"], t["orders"])}
+_QUERIES = {q: (lambda t, q=q: getattr(tpch, q)(
+    *(t[n] for n in tpch.INPUTS[q]))) for q in tpch.INPUTS}
 # q22 over the first 10% of the orders rows
 _CASES = {"q14": ("q14", 1.0), "q22": ("q22", 1.0), "q22_few_orders":
           ("q22", 0.1)}
+# run by the reference once each, unfused, on its plain path
+_HOST_STRING_QUERIES = ("q1", "q3", "q6", "q12")
 
 
 @pytest.fixture(scope="module")
-def reference_results(tmp_path_factory):
-    """case -> conf -> the reference engine's result."""
+def parquet_dirs(tmp_path_factory):
+    """orders fraction -> a directory of the reference's tables."""
     dirs = {}
     for frac, names in ((1.0, ("lineitem", "part", "customer", "orders")),
                         (0.1, ("customer", "orders"))):
         d = tmp_path_factory.mktemp(f"tpch_{int(frac * 100)}")
         _write(d, names, frac)
         dirs[frac] = str(d)
+    return dirs
+
+
+@pytest.fixture(scope="module")
+def reference_results(parquet_dirs):
+    """case -> conf -> the reference engine's result."""
+    dirs = parquet_dirs
     out = {}
     for case, (query, frac) in _CASES.items():
         build = getattr(rtpch, query)
@@ -129,6 +148,9 @@ def reference_results(tmp_path_factory):
             rnk.reset_config()
         res["default"] = rcollect(rapply(build(dirs[frac]), RapidsConf()))
         out[case] = res
+    for query in _HOST_STRING_QUERIES:
+        out[query] = rcollect(rapply(getattr(rtpch, query)(dirs[1.0]),
+                                     RapidsConf(_UNFUSED)))
     return out
 
 
@@ -136,6 +158,8 @@ def _assert_result_equal(got: dict, want):
     assert list(got) == list(want.columns)
     for name in want.columns:
         w = want[name].to_numpy()
+        if w.dtype.kind == "M":  # a DATE: days since the epoch, as the port
+            w = w.astype("datetime64[D]").astype(np.int64)
         g = got[name]
         assert len(g) == len(w), name
         if w.dtype.kind == "f":
@@ -166,22 +190,98 @@ def test_query_matches_reference_engine(reference_results, case, conf):
 @pytest.mark.parametrize("case", sorted(_CASES))
 def test_query_in_small_batches(reference_results, case, batch_rows):
     """Many scan batches: the broadcast build, the aggregate's merges and
-    the sort meet string columns whose dictionaries differ (at 256 rows
-    every part and customer batch has its own)."""
+    the sort meet string columns that share their table's dictionary,
+    and q22's substring results, whose dictionaries differ per batch."""
     query, frac = _CASES[case]
     got = collect(apply_overrides(_QUERIES[query](_tables(frac)),
                                   {_BATCH: batch_rows}, device="cpu"))
     _assert_result_equal(got, reference_results[case]["default"])
 
 
-@pytest.mark.parametrize("case", sorted(_CASES))
+@pytest.mark.parametrize("query", _HOST_STRING_QUERIES)
+def test_host_string_query_matches_reference_engine(reference_results,
+                                                    query):
+    """256-row scan batches over ``HostStrings`` tables: every batch of a
+    scan shares its table's dictionary, through filters, joins, the
+    aggregate's merges and the sort. Nothing calls
+    ``StringColumn.from_strings``."""
+    calls = []
+    orig = StringColumn.from_strings
+    StringColumn.from_strings = staticmethod(
+        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    try:
+        got = collect(apply_overrides(_QUERIES[query](_tables()),
+                                      {_BATCH: 256}, device="cpu"))
+    finally:
+        StringColumn.from_strings = staticmethod(orig)
+    assert not calls
+    want = reference_results[query]
+    assert len(want) > 0
+    _assert_result_equal(got, want)
+
+
+def _join_order(node):
+    """The column names of each relation of a join chain, in join order
+    (the stream side first), found below any projection."""
+    while type(node).__name__ in ("ProjectNode", "LimitNode", "SortNode",
+                                  "AggregateNode"):
+        node = node.children[0]
+    if type(node).__name__ == "JoinNode":
+        return _join_order(node.children[0]) + \
+            [tuple(node.children[1].output_schema().names)]
+    return [tuple(node.output_schema().names)]
+
+
+def _decoded(cols):
+    return {k: v.to_objects() if isinstance(v, HostStrings) else v
+            for k, v in cols.items()}
+
+
+@pytest.mark.parametrize("case", ["q3", "q91_sf0.01", "q91_sf1"])
+def test_join_chain_in_the_reference_order(case, parquet_dirs):
+    """The reference's default optimizer puts a join chain in its greedy
+    order: q3's filtered lineitem streams, orders then customer build;
+    q91's chain (as ``plan_statement`` gives it) starts from
+    household_demographics at sf 0.01 and from catalog_returns at sf 1.
+    The port's ``reorder_joins`` gives the same order."""
+    from spark_rapids_tpu.benchmarks import tpcds as rtpcds
+    from spark_rapids_tpu.plan import nodes as rpn
+    from spark_rapids_tpu.plan.optimizer import optimize as roptimize
+    from spark_rapids_tpu.sql import parse as rparse
+    from spark_rapids_tpu.sql import plan_statement as rplan
+
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    from spark_rapids_tpu_torch.plan import nodes as pn
+    from spark_rapids_tpu_torch.plan.optimizer import reorder_joins
+    from spark_rapids_tpu_torch.sql import parse, plan_statement
+
+    if case == "q3":
+        want = _join_order(roptimize(rtpch.q3(parquet_dirs[1.0])))
+        got = _join_order(reorder_joins(_QUERIES["q3"](_tables())))
+        first = ("l_orderkey", "o_orderkey")
+    else:
+        sf = float(case.split("_sf")[1])
+        tables = tpcds.q91_tables(sf)
+        rcat = {n: rpn.InMemorySource(_decoded(c))
+                for n, c in tables.items()}
+        tcat = {n: pn.InMemorySource(c) for n, c in tables.items()}
+        want = _join_order(roptimize(rplan(rparse(rtpcds.TPCDS_SQL["q91"]),
+                                           rcat)))
+        got = _join_order(reorder_joins(plan_statement(parse(tpcds.Q91_SQL),
+                                                       tcat)))
+        first = (("hd_demo_sk", "c_customer_sk") if sf < 1 else
+                 ("cr_returned_date_sk", "cc_call_center_sk"))
+    assert got == want
+    assert (got[0][0], got[1][0]) == first
+
+
+@pytest.mark.parametrize("case", sorted(_CASES) + list(_HOST_STRING_QUERIES))
 def test_query_matches_numpy_oracle(case):
-    query, frac = _CASES[case]
+    query, frac = _CASES.get(case, (case, 1.0))
     t = _tables(frac)
     got = collect(apply_overrides(_QUERIES[query](t), device="cpu"))
     want = getattr(tpch, f"{query}_numpy")(
-        *((t["lineitem"], t["part"]) if query == "q14" else
-          (t["customer"], t["orders"])))
+        *(t[n] for n in tpch.INPUTS[query]))
     assert list(got) == list(want)
     for name, col in want.items():
         if col.dtype.kind == "f":
