@@ -54,13 +54,29 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
 6. TPC-H q14 at sf 10 (lineitem 60M rows in 8 generation chunks, part
    2M), within 1e-9 relative of a numpy oracle, with K4, K3 and K1
    launched during the query;
-7. TPC-H q1, q6, q12 and q3 at sf 10 over the same lineitem (and
-   orders 15M, customer 1.5M), generated once with its string columns
-   as ``HostStrings`` (one sorted dictionary per table), strings, keys
-   and counts exact and float sums and averages within 1e-9 relative of
-   numpy oracles, with K1 launched during each and K3 during q12 and
-   q3 (K2's launches are printed); q3's build rows beside its peak
-   device memory;
+7. the other TPC-H queries of ``tpch.INPUTS`` at sf 10 over the same
+   lineitem (and orders 15M, customer 1.5M, supplier 100k, nation 25,
+   partsupp 8M), generated once with its string columns as
+   ``HostStrings`` (one sorted dictionary per table): q1, q3, q6 and
+   q12, then q4, q13, q15, q16, q18 and q21, each against its numpy
+   oracle (strings, keys and counts exact, float sums and averages
+   within 1e-9 relative) with K1 launched during each, K3 during all
+   but q1 and q6, K2 during q13 and q21 and K4 during q16 (every
+   launch count printed), its peak device memory, and q3's build rows;
+   q1 also in a profiled run: its group-by calls' device time (the
+   dense path since the tenth slice), failing if ``index_add_`` ran;
+   q21 again with every aggregate step timed apart (the merge loop of
+   its distinct counts);
+   then the group-by's float sums at q1's shape (the dense path, 6
+   groups over 2,097,152 rows, q1's eight aggregates) and the sort
+   path's ``seg_sum`` kernel at q13's second aggregate (a few dozen keys
+   over 1.5M rows), the q5lite step's live rows and q18's last merge
+   (its running partial of about 36M order keys and one 2,097,152-row
+   batch), the kernel equal to its plain version bit for bit, each
+   against the host's values, beside ``index_add_`` (the one PyTorch
+   call that sums per group) and the bytes bound; then left, left semi and full joins of a 2,097,152-row
+   lineitem batch against the filtered orders on the card, each equal
+   to the same call on the CPU;
    then TPC-H q22 at sf 10 (customer 1.5M rows, orders 15M), country
    codes and counts exact and balances within 1e-9 relative of a numpy
    oracle, with K6, K3, K2 and K1 launched during the query, and the
@@ -102,13 +118,19 @@ PATH_KERNELS = {"q26": ("partition_order", "radix_order", "probe"),
                 "q14": ("match_table", "probe", "partition_order"),
                 "q22": ("substring", "probe", "radix_order",
                         "partition_order"),
-                "q91": ("like_table", "probe", "partition_order"),
+                "q91": ("like_table", "probe", "partition_order", "seg_sum"),
                 "q1": ("partition_order",),
                 "q6": ("partition_order",),
                 "q12": ("partition_order", "probe"),
-                "q3": ("partition_order", "probe")}
+                "q3": ("partition_order", "probe", "seg_sum"),
+                "q4": ("partition_order", "probe"),
+                "q13": ("partition_order", "probe", "radix_order"),
+                "q15": ("partition_order", "probe", "seg_sum"),
+                "q16": ("partition_order", "probe", "match_table"),
+                "q18": ("partition_order", "probe", "seg_sum"),
+                "q21": ("partition_order", "probe", "radix_order")}
 KERNELS = ("partition_order", "radix_order", "probe", "match_table",
-           "like_table", "substring")
+           "like_table", "substring", "seg_sum")
 # the reference's window budget (native/kernels/strings.py _WINDOW_BUDGET)
 WINDOW_BUDGET = 64 << 20
 
@@ -902,7 +924,8 @@ def phase_q14(dev, lineitem, part, nk):
 
 
 def phase_tpch(dev, name, tables, nk):
-    """TPC-H q1, q3, q6 or q12 at sf 10 against its numpy oracle."""
+    """A TPC-H query of ``tpch.INPUTS`` at sf 10 against its numpy
+    oracle."""
     import numpy as np
 
     from spark_rapids_tpu_torch.benchmarks import datagen, tpch
@@ -917,6 +940,11 @@ def phase_tpch(dev, name, tables, nk):
     rows = len(next(iter(want.values())))
     if not rows or (name == "q6" and want["revenue"][0] is None):
         raise AssertionError(f"{name} at sf {SF} must return rows")
+    run = _plan_runner(dev, lambda: getattr(tpch, name)(*args))
+    if name == "q1":
+        rec.update(_groupby_profile(run))
+    if name == "q21":
+        rec.update(_aggregate_steps(run))
     rec.update({f"{t}_rows": len(next(iter(tables[t].values())))
                 for t in tpch.INPUTS[name]})
     rec.update(result_rows=rows, oracle_s=oracle_s, matches_oracle=True)
@@ -931,7 +959,303 @@ def phase_tpch(dev, name, tables, nk):
                 np.flatnonzero(customer["c_mktsegment"].dictionary ==
                                tpch.Q3_SEGMENT)).sum()))
     print(json.dumps(rec))
+    if rec.get("index_add_ran"):
+        raise AssertionError(f"{name} ran index_add_: its float sums must "
+                             "take the dense path")
     return rec
+
+
+def _groupby_profile(run):
+    """One profiled run: the device time of the kernels the aggregate
+    exec's group-by calls launch (a ``record_function`` around each
+    call), the run's busy device time, and whether ``index_add_`` ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from spark_rapids_tpu_torch.execs import aggregate as agg_exec
+
+    orig = agg_exec.groupby_aggregate
+
+    def marked(*a, **k):
+        with record_function("port_groupby"):
+            return orig(*a, **k)
+
+    agg_exec.groupby_aggregate = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        agg_exec.groupby_aggregate = orig
+    # the CPU side of each marked call: the device time of the kernels
+    # launched inside it (the profiler's device-side range of the mark
+    # spans idle gaps too, so it is left out)
+    marks = [e for e in prof.events() if e.name == "port_groupby" and
+             e.device_type == DeviceType.CPU]
+    gb_us = sum(e.device_time_total for e in marks)
+    calls = len(marks)
+    busy_us = 0.0
+    index_add = False
+    top = []
+    for e in prof.key_averages():
+        if "index_add" in e.key or "indexFuncLargeIndex" in e.key:
+            index_add = True
+        if e.device_type == DeviceType.CUDA and e.key != "port_groupby":
+            busy_us += e.self_device_time_total
+            top.append((e.self_device_time_total, e.key[:60], e.count))
+    top.sort(reverse=True)
+    return {"groupby_device_ms": gb_us / 1e3,
+            "groupby_calls": calls,
+            "profiled_busy_ms": busy_us / 1e3, "index_add_ran": index_add,
+            "top_device_ms": [{"name": k, "calls": c, "ms": us / 1e3}
+                              for us, k, c in top[:6]]}
+
+
+def _aggregate_steps(run):
+    """One run with every aggregate step of the aggregate exec timed
+    apart (a synchronize on each side): the update of each batch, and
+    the merge loop, the concatenation with the running partials and
+    their re-aggregation."""
+    import torch
+
+    from spark_rapids_tpu_torch.execs import aggregate as agg_exec
+
+    spent = {"update_s": 0.0, "merge_s": 0.0, "concat_s": 0.0,
+             "merges": 0, "largest_merge_rows": 0}
+    orig_agg = agg_exec.HashAggregateExec._aggregate
+    orig_cat = agg_exec.concat_batches
+
+    def timed(key, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        spent[key] += time.perf_counter() - t0
+        return out
+
+    def aggregate(self, batch, specs, types):
+        if specs is self.merge_specs:
+            spent["merges"] += 1
+            spent["largest_merge_rows"] = max(spent["largest_merge_rows"],
+                                              batch.num_rows)
+            return timed("merge_s", orig_agg, self, batch, specs, types)
+        return timed("update_s", orig_agg, self, batch, specs, types)
+
+    agg_exec.HashAggregateExec._aggregate = aggregate
+    agg_exec.concat_batches = lambda parts: timed("concat_s", orig_cat,
+                                                  parts)
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        spent["steps_wall_s"] = time.perf_counter() - t0
+    finally:
+        agg_exec.HashAggregateExec._aggregate = orig_agg
+        agg_exec.concat_batches = orig_cat
+    spent["merge_loop_s"] = spent["merge_s"] + spent["concat_s"]
+    return {"aggregate_steps": spent}
+
+
+def _sums_record(case, got, want, ms, lib_ms, nbytes, rows, groups,
+                 plain_ms=None):
+    """One group-by case: float sums against the host's, relative."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                       1e-300))) \
+        if got.size else 0.0
+    rec = {"phase": "groupby", "case": case, "rows": rows,
+           "groups": groups, "max_rel_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "index_add_",
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    print(json.dumps(rec))
+    if got.shape != want.shape or not err <= 1e-9:
+        raise AssertionError(f"group-by {case}: sums differ from the "
+                             f"host's (relative {err})")
+    return rec
+
+
+def _fold_case(dev, case, keys, x, iters):
+    """The sort path's float sums over rows sorted by key: the
+    ``seg_sum`` kernel against its plain version (``seg_fold``, bit for
+    bit) and the host's per-group sums (1e-9 relative), beside
+    ``index_add_`` over the same group ids. Returns the kernel's
+    record."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.kernels import groupby as kgb
+
+    order = np.argsort(keys, kind="stable")
+    ks, xs = keys[order], x[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    sizes = np.diff(np.r_[starts, len(ks)])
+    want = np.add.reduceat(xs, starts) if len(xs) else xs
+    d_x = torch.from_numpy(xs).to(dev)
+    d_st = torch.from_numpy(starts).to(dev)
+    d_sz = torch.from_numpy(sizes).to(dev)
+    longest = int(sizes.max())
+    seg = torch.from_numpy(np.repeat(np.arange(len(starts)), sizes)).to(dev)
+    got = kgb.seg_sum(d_x, d_st, d_sz, longest)
+    plain = kgb.seg_fold(d_x, d_st, d_sz, longest, torch.add)
+    groups = len(starts)
+    rec = _record(
+        "seg_sum", "spark_rapids_tpu_torch/kernels/csrc/groupby.cu",
+        "spark_rapids_tpu/ops/groupby.py:903 (_seg_scan, a jnp scan; no "
+        "pallas_call)", [got], [plain],
+        _time_ms(lambda: kgb.seg_sum(d_x, d_st, d_sz, longest), iters),
+        _time_ms(lambda: kgb.seg_fold(d_x, d_st, d_sz, longest, torch.add),
+                 iters),
+        _time_ms(lambda: torch.zeros(groups, dtype=torch.float64,
+                                     device=dev).index_add_(0, seg, d_x),
+                 iters),
+        len(xs) * 8 + groups * 24,
+        f"{case}: {len(xs)} rows, {groups} groups, longest {longest}",
+        show=False)
+    rec["device_ms"] = _device_ms(
+        lambda: kgb.seg_sum(d_x, d_st, d_sz, longest), "fold_level")
+    print(json.dumps(rec))
+    _sums_record(case, got.cpu().numpy(), want, rec["kernel_ms"],
+                 rec["library_ms"], len(xs) * 8 + groups * 24, len(xs),
+                 groups, plain_ms=rec["plain_ms"])
+    return rec
+
+
+def phase_groupby(dev, lineitem, orders, customer):
+    """Float sums on the two group-by paths at the queries' shapes: the
+    dense path at q1's, the sort path's ``seg_sum`` kernel at q13's,
+    q5lite's and q18's. Returns the kernel's record (q18's case, every
+    case under ``cases``)."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.benchmarks import q5lite, tpch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.ops import groupby as gb
+
+    # q1: one scan batch, the columns its eight aggregates read
+    n = 1 << 21
+    rf, ls = lineitem["l_returnflag"], lineitem["l_linestatus"]
+    qty = lineitem["l_quantity"][:n]
+    price = lineitem["l_extendedprice"][:n]
+    disc = lineitem["l_discount"][:n]
+    disc_price = price * (1.0 - disc)
+    charge = disc_price * (1.0 + lineitem["l_tax"][:n])
+    floats = [qty, price, disc_price, charge, disc]
+    types = [dt.STRING, dt.STRING] + [dt.FLOAT64] * 5
+    specs = [gb.AggSpec("sum", o) for o in (2, 3, 4, 5)] + \
+        [gb.AggSpec(op, o) for o in (2, 3, 6) for op in ("sum", "count")] + \
+        [gb.AggSpec("count_star")]
+    batch = batch_from_numpy([rf.codes[:n], ls.codes[:n]] + floats, types,
+                             dictionaries=[rf.dictionary, ls.dictionary] +
+                             [None] * 5, device=dev)
+    got, _ = gb.groupby_aggregate(batch, [0, 1], specs, types)
+    codes = rf.codes[:n].astype(np.int64) * len(ls.dictionary) + \
+        ls.codes[:n]
+    slots = np.unique(codes)
+    inv = np.searchsorted(slots, codes)
+    cols = [2, 3, 4, 5, 2, 3, 6]
+    want = np.stack([np.bincount(inv, weights=floats[o - 2],
+                                 minlength=len(slots)) for o in cols], 1)
+    sums = torch.stack([got.columns[2 + i].data for i, s in
+                        enumerate(specs) if s.op == "sum"], 1)
+    counts = got.columns[-1].data.cpu().numpy()
+    if not np.array_equal(counts, np.bincount(inv)):
+        raise AssertionError("q1 group-by counts differ")
+    d_codes = torch.from_numpy(inv).to(dev)
+    x = torch.from_numpy(np.stack([floats[o - 2] for o in cols], 1)).to(dev)
+    _sums_record(
+        "dense float sums, q1 shape (6 groups, 2,097,152 rows, q1's "
+        "eight aggregates)", sums.cpu().numpy(), want,
+        _time_ms(lambda: gb.groupby_aggregate(batch, [0, 1], specs, types),
+                 20),
+        _time_ms(lambda: torch.zeros(len(slots), len(cols),
+                                     dtype=torch.float64, device=dev
+                                     ).index_add_(0, d_codes, x), 20),
+        n * (2 * 4 + 5 * 8), n, len(slots),
+        plain_ms=_time_ms(lambda: [gb._sweep(d_codes, x[:, j], len(slots),
+                                             "sum", 0.0)
+                                   for j in range(len(cols))], 5))
+    del batch, x
+    # q13's second aggregate: orders per customer, then customers per
+    # order count (a few dozen keys; a float column to sum)
+    keep = ~np.isin(orders["o_orderpriority"].codes, np.flatnonzero(
+        orders["o_orderpriority"].dictionary == tpch.Q13_EXCLUDED))
+    cust = customer["c_custkey"]
+    per = np.bincount(orders["o_custkey"][keep],
+                      minlength=int(cust.max()) + 1)[cust]
+    cases = [_fold_case(dev, "q13 second aggregate (order counts over "
+                        "1.5M customers)", per.astype(np.int64),
+                        customer["c_acctbal"], 20)]
+    # the q5lite step's live rows
+    keys, valid, vals = q5lite.gen_data(q5lite.N_ROWS, SEED_Q5)
+    live = (vals > 0.5) & valid
+    cases.append(_fold_case(dev, "q5lite step (65,536 keys)", keys[live],
+                            vals[live], 20))
+    # q18's last merge: the running partial (the order keys of every
+    # batch but the last, with their quantity sums) and the last batch
+    lk, lq = lineitem["l_orderkey"], lineitem["l_quantity"]
+    cut = (len(lk) - 1) // n * n
+    part = np.bincount(lk[:cut], weights=lq[:cut])
+    pkeys = np.flatnonzero(np.bincount(lk[:cut]))
+    keys = np.concatenate([pkeys, lk[cut:]])
+    vals = np.concatenate([part[pkeys], lq[cut:]])
+    main = _fold_case(dev, "q18 last merge (running partial and one "
+                      "scan batch)", keys, vals, 5)
+    torch.cuda.synchronize()
+    main["cases"] = cases + [dict(main)]
+    return main
+
+
+def phase_join_kinds(dev, lineitem, orders):
+    """Left, left semi and full joins on the card against the same call
+    on the CPU: one 2,097,152-row lineitem batch probing the orders of
+    q3's date filter."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.benchmarks.datagen import days
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.ops import join as oj
+
+    n = 1 << 21
+    ok = orders["o_orderdate"] < days(tpch.Q3_DATE)
+    s_cols = [lineitem["l_orderkey"][:n], lineitem["l_quantity"][:n]]
+    b_cols = [orders["o_orderkey"][ok], orders["o_custkey"][ok]]
+    s_t, b_t = [dt.INT64, dt.FLOAT64], [dt.INT64, dt.INT64]
+    recs = []
+    for kind in ("left", "leftsemi", "full"):
+        out = []
+        for d in (dev, "cpu"):
+            s = batch_from_numpy(s_cols, s_t, device=d)
+            b = batch_from_numpy(b_cols, b_t, device=d)
+            got, _ = oj.equi_join(s, b, [0], [0], s_t, b_t, kind)
+            out.append([c.data.cpu().numpy() for c in got.columns] +
+                       [c.validity.cpu().numpy() for c in got.columns
+                        if c.validity is not None])
+            if d == dev:
+                ms = _time_ms(lambda: oj.equi_join(s, b, [0], [0], s_t,
+                                                   b_t, kind), 5)
+                rows = got.num_rows
+        equal = len(out[0]) == len(out[1]) and all(
+            np.array_equal(a, b) for a, b in zip(*out))
+        rec = {"phase": "join_kinds", "kind": kind, "stream_rows": n,
+               "build_rows": int(ok.sum()), "out_rows": rows,
+               "equal_to_cpu": equal, "ms": ms}
+        print(json.dumps(rec))
+        if not equal:
+            raise AssertionError(f"{kind} join on the card differs from "
+                                 f"the CPU")
+        recs.append(rec)
+    torch.cuda.synchronize()
+    return recs
 
 
 def phase_q22(dev, customer, orders, phone, nk):
@@ -1038,7 +1362,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from spark_rapids_tpu_torch import kernels as nk
-        from spark_rapids_tpu_torch.benchmarks import datagen, tpcds, tpcxbb
+        from spark_rapids_tpu_torch.benchmarks import datagen, tpcds, tpch, \
+            tpcxbb
     except ImportError as e:
         print(f"FAIL: run chip_smoke.py from a checkout of the "
               f"repository ({e})")
@@ -1077,12 +1402,15 @@ def main() -> int:
         ss = tpcds.gen_store_sales(SF)
         item = tpcds.gen_item(SF)
         want = tpcxbb.q26_numpy(ss, item)
-        # one lineitem for q14, q1, q6, q12 and q3
+        # one lineitem for q14 and the TPC-H queries after it
         lineitem, part = datagen.gen_lineitem(SF), datagen.gen_part(SF)
         customer, orders = datagen.gen_customer(SF), datagen.gen_orders(SF)
         q91_tables = tpcds.q91_tables(SF)
         tables = {"lineitem": lineitem, "orders": orders,
-                  "customer": customer}
+                  "customer": customer, "part": part,
+                  "supplier": datagen.gen_supplier(SF),
+                  "nation": datagen.gen_nation(SF),
+                  "partsupp": datagen.gen_partsupp(SF)}
         print(f"data: sf {SF}, {len(ss['ss_item_sk'])} sales, "
               f"{len(item['i_item_sk'])} items, {len(want['cid'])} q26 "
               f"rows; {len(lineitem['l_partkey'])} lineitem, "
@@ -1110,9 +1438,13 @@ def main() -> int:
         del ss, item
         enter("q14")
         runs["q14"] = phase_q14(dev, lineitem, part, nk)
-        for name in ("q1", "q6", "q12", "q3"):
+        for name in (q for q in tpch.INPUTS if q not in ("q14", "q22")):
             enter(name)
             runs[name] = phase_tpch(dev, name, tables, nk)
+        enter("groupby")
+        recs["seg_sum"] = phase_groupby(dev, lineitem, orders, customer)
+        enter("join kinds")
+        phase_join_kinds(dev, lineitem, orders)
         del lineitem, tables
         enter("q22")
         runs["q22"] = phase_q22(dev, customer, orders, phone, nk)

@@ -19,7 +19,13 @@ from spark_rapids_tpu_torch.plan import nodes as pn
 ColumnOrName = Union[Column, str]
 
 #: pyspark's join spellings -> the plan's join kinds the port has
-_HOW = {"inner": "inner", "leftanti": "left_anti", "left_anti": "left_anti"}
+#: pyspark's join names -> plan join kinds (the reference's mapping; a
+#: cross join is not ported)
+_HOW = {"inner": "inner", "left": "left", "leftouter": "left",
+        "right": "right", "rightouter": "right", "full": "full",
+        "outer": "full", "fullouter": "full", "full_outer": "full",
+        "leftsemi": "left_semi", "left_semi": "left_semi",
+        "leftanti": "left_anti", "left_anti": "left_anti"}
 
 
 def _as_col(c: ColumnOrName) -> Column:
@@ -86,7 +92,7 @@ class DataFrame:
     def join(self, other: "DataFrame", on, how: str = "inner"
              ) -> "DataFrame":
         """Equi-join on column names (``on`` a name, a list of names, or
-        (left name, right name) pairs). Inner and left anti joins are
+        (left name, right name) pairs). Every kind but cross is
         ported."""
         kind = _HOW.get(how)
         if kind is None:

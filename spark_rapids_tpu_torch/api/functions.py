@@ -36,6 +36,8 @@ def _agg(klass) -> Callable[[object], AggColumn]:
 
 
 sum = _agg(A.Sum)          # noqa: A001  (pyspark parity)
+min = _agg(A.Min)          # noqa: A001
+max = _agg(A.Max)          # noqa: A001
 avg = _agg(A.Average)
 mean = avg
 

@@ -1,5 +1,5 @@
-"""The q1, q3, q6, q12, q14 and q22 columns of the TPC-H generators, in
-numpy alone.
+"""The columns of the TPC-H generators that the port's queries read (q1,
+q3, q4, q6, q12-q16, q18, q21 and q22), in numpy alone.
 
 Each function replays spark_rapids_tpu/benchmarks/datagen.py's
 ``default_rng`` draws in the same order with the same bounds (a bounded
@@ -24,7 +24,8 @@ import numpy as np
 from spark_rapids_tpu_torch.io.hoststrings import HostStrings
 
 CHUNK_ROWS = 1 << 23
-_SEEDS = {"lineitem": 11, "orders": 12, "customer": 13, "part": 17}
+_SEEDS = {"lineitem": 11, "orders": 12, "customer": 13, "supplier": 14,
+          "nation": 15, "region": 16, "part": 17, "partsupp": 18}
 _EPOCH = np.datetime64("1970-01-01")
 
 RETURN_FLAGS = np.array(["A", "N", "R"], dtype=object)
@@ -38,15 +39,30 @@ SHIP_MODES = np.array(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP",
 P_TYPES_1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
 P_TYPES_2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
 P_TYPES_3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
+NATIONS = np.array(
+    ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+     "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ", "JAPAN",
+     "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU", "CHINA",
+     "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA", "UNITED KINGDOM",
+     "UNITED STATES"], dtype=object)
+REGIONS = np.array(["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"],
+                   dtype=object)
+ORDER_STATUS = np.array(["F", "O", "P"], dtype=object)
+BRANDS = np.array([f"Brand#{b}" for b in range(11, 56)], dtype=object)
 
-LINEITEM_COLUMNS = ["l_orderkey", "l_partkey", "l_quantity",
+LINEITEM_COLUMNS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
                     "l_extendedprice", "l_discount", "l_tax",
                     "l_returnflag", "l_linestatus", "l_shipdate",
                     "l_commitdate", "l_receiptdate", "l_shipmode"]
-ORDERS_COLUMNS = ["o_orderkey", "o_custkey", "o_orderdate",
-                  "o_orderpriority", "o_shippriority"]
-CUSTOMER_COLUMNS = ["c_custkey", "c_mktsegment", "c_acctbal", "c_phone"]
-PART_COLUMNS = ["p_partkey", "p_type"]
+ORDERS_COLUMNS = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate",
+                  "o_orderpriority", "o_orderstatus", "o_shippriority"]
+CUSTOMER_COLUMNS = ["c_custkey", "c_mktsegment", "c_acctbal",
+                    "c_nationkey", "c_name", "c_phone"]
+PART_COLUMNS = ["p_partkey", "p_brand", "p_type", "p_size"]
+SUPPLIER_COLUMNS = ["s_suppkey", "s_nationkey", "s_acctbal"]
+NATION_COLUMNS = ["n_nationkey", "n_name"]
+REGION_COLUMNS = ["r_regionkey", "r_name"]
+PARTSUPP_COLUMNS = ["ps_partkey", "ps_suppkey"]
 
 
 def days(s: str) -> int:
@@ -61,7 +77,10 @@ def table_rows(name: str, sf: float) -> int:
     return {"lineitem": max(int(6_000_000 * sf), 100),
             "orders": max(int(1_500_000 * sf), 25),
             "customer": max(int(150_000 * sf), 10),
-            "part": max(int(200_000 * sf), 10)}[name]
+            "supplier": max(int(10_000 * sf), 5),
+            "nation": 25, "region": 5,
+            "part": max(int(200_000 * sf), 10),
+            "partsupp": max(int(200_000 * sf), 10) * 4}[name]
 
 
 def _chunks(name: str, sf: float, chunk_rows: int):
@@ -93,7 +112,7 @@ def _concat(parts, names, strings=None):
 
 def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
     """``LINEITEM_COLUMNS``: the draws of ``_lineitem_chunk`` up to
-    ``l_shipmode`` (``l_suppkey`` drawn and dropped)."""
+    ``l_shipmode``."""
     parts = []
     for rng, _start, n, ci, nchunks in _chunks("lineitem", sf, chunk_rows):
         orderkey = rng.integers(1, max(int(1_500_000 * sf), 25) * 4, n
@@ -109,7 +128,8 @@ def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
         receipt_delta = rng.integers(1, 31, n)
         partkey = rng.integers(1, max(int(200_000 * sf), 10), n
                                ).astype(np.int64)
-        rng.integers(1, max(int(10_000 * sf), 5), n)       # l_suppkey
+        suppkey = rng.integers(1, max(int(10_000 * sf), 5), n
+                               ).astype(np.int64)
         quantity = rng.integers(1, 51, n).astype(np.float64)
         price = np.round(rng.random(n) * 100_000 + 900, 2)
         discount = np.round(rng.integers(0, 11, n) / 100.0, 2)
@@ -119,6 +139,7 @@ def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
         shipmode = rng.integers(0, 7, n).astype(np.int32)
         parts.append({
             "l_orderkey": orderkey, "l_partkey": partkey,
+            "l_suppkey": suppkey,
             "l_quantity": quantity, "l_extendedprice": price,
             "l_discount": discount, "l_tax": tax,
             "l_returnflag": returnflag, "l_linestatus": linestatus,
@@ -132,7 +153,8 @@ def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
 
 
 def gen_part(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
-    """``p_partkey`` and ``p_type`` (``f"{t1} {t2} {t3}"``)."""
+    """``PART_COLUMNS``: ``p_type`` is ``f"{t1} {t2} {t3}"``; the
+    container's two draws come between it and ``p_brand``."""
     types = np.array([f"{a} {b} {c}" for a in P_TYPES_1 for b in P_TYPES_2
                       for c in P_TYPES_3], dtype=object)
     parts = []
@@ -140,17 +162,23 @@ def gen_part(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
         t1 = rng.integers(0, 6, n)
         t2 = rng.integers(0, 5, n)
         t3 = rng.integers(0, 5, n)
+        rng.integers(0, 5, n)                              # p_container
+        rng.integers(0, 8, n)
         parts.append({
             "p_partkey": np.arange(start + 1, start + n + 1, dtype=np.int64),
-            "p_type": t1 * 25 + t2 * 5 + t3})
-    return _concat(parts, PART_COLUMNS, {"p_type": types})
+            "p_brand": rng.integers(11, 56, n) - 11,
+            "p_type": t1 * 25 + t2 * 5 + t3,
+            "p_size": rng.integers(1, 51, n).astype(np.int32)})
+    return _concat(parts, PART_COLUMNS, {"p_type": types,
+                                         "p_brand": BRANDS})
 
 
 def gen_customer(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
     """``CUSTOMER_COLUMNS``. The reference draws the phone's country code
     with one scalar ``rng.integers(10, 35)`` per row inside an f-string;
     a vector draw of the same bounds gives the same values from the same
-    stream."""
+    stream. ``c_name`` is ``Customer#`` and the key in nine digits, so
+    key order is string order and the names are their own dictionary."""
     suffix = np.arange(9000)
     phones = np.array([f"{cc}-{i % 900 + 100}-{i + 1000}"
                        for cc in range(10, 35) for i in suffix],
@@ -159,31 +187,81 @@ def gen_customer(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
     for rng, start, n, _ci, _nc in _chunks("customer", sf, chunk_rows):
         segment = rng.integers(0, 5, n)
         acctbal = np.round(rng.random(n) * 11_000 - 1_000, 2)
-        rng.integers(0, 25, n)                             # c_nationkey
+        nation = rng.integers(0, 25, n).astype(np.int64)
         cc = rng.integers(10, 35, n)
         row = np.arange(start, start + n)
         parts.append({
             "c_custkey": np.arange(start + 1, start + n + 1, dtype=np.int64),
             "c_mktsegment": segment, "c_acctbal": acctbal,
+            "c_nationkey": nation, "c_name": row,
             "c_phone": (cc - 10) * 9000 + row % 9000})
-    return _concat(parts, CUSTOMER_COLUMNS,
-                   {"c_mktsegment": SEGMENTS, "c_phone": phones})
+    out = _concat(parts, [c for c in CUSTOMER_COLUMNS if c != "c_name"],
+                  {"c_mktsegment": SEGMENTS, "c_phone": phones})
+    n = table_rows("customer", sf)
+    names = np.char.mod("Customer#%09d", np.arange(1, n + 1)).astype(object)
+    out["c_name"] = HostStrings(np.arange(n, dtype=np.int32), names)
+    return {c: out[c] for c in CUSTOMER_COLUMNS}
 
 
 def gen_orders(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
-    """``ORDERS_COLUMNS``: the draws of ``_orders_chunk`` up to
-    ``o_orderpriority`` (``o_totalprice`` drawn and dropped), and
+    """``ORDERS_COLUMNS``: the draws of ``_orders_chunk``, and
     ``o_shippriority``, 0 on every row."""
     parts = []
     for rng, start, n, _ci, _nc in _chunks("orders", sf, chunk_rows):
         custkey = rng.integers(1, max(int(150_000 * sf), 10), n
                                ).astype(np.int64)
-        rng.random(n)                                      # o_totalprice
+        totalprice = np.round(rng.random(n) * 400_000 + 800, 2)
         orderdate = rng.integers(_LO, _HI + 1, n).astype(np.int32)
+        priority = rng.integers(0, 5, n)
         parts.append({
             "o_orderkey": np.arange(start + 1, start + n + 1,
                                     dtype=np.int64) * 4,
-            "o_custkey": custkey, "o_orderdate": orderdate,
-            "o_orderpriority": rng.integers(0, 5, n),
+            "o_custkey": custkey, "o_totalprice": totalprice,
+            "o_orderdate": orderdate, "o_orderpriority": priority,
+            "o_orderstatus": rng.integers(0, 3, n),
             "o_shippriority": np.zeros(n, dtype=np.int32)})
-    return _concat(parts, ORDERS_COLUMNS, {"o_orderpriority": PRIORITIES})
+    return _concat(parts, ORDERS_COLUMNS, {"o_orderpriority": PRIORITIES,
+                                           "o_orderstatus": ORDER_STATUS})
+
+
+def gen_supplier(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
+    """``SUPPLIER_COLUMNS``."""
+    parts = []
+    for rng, start, n, _ci, _nc in _chunks("supplier", sf, chunk_rows):
+        parts.append({
+            "s_suppkey": np.arange(start + 1, start + n + 1, dtype=np.int64),
+            "s_nationkey": rng.integers(0, 25, n).astype(np.int64),
+            "s_acctbal": np.round(rng.random(n) * 11_000 - 1_000, 2)})
+    return _concat(parts, SUPPLIER_COLUMNS)
+
+
+def gen_nation(sf: float = 1.0, chunk_rows: int = CHUNK_ROWS) -> dict:
+    """``NATION_COLUMNS``: the 25 nations, at every scale."""
+    return {"n_nationkey": np.arange(25, dtype=np.int64),
+            "n_name": HostStrings.from_table(NATIONS, np.arange(25))}
+
+
+def gen_region(sf: float = 1.0, chunk_rows: int = CHUNK_ROWS) -> dict:
+    """``REGION_COLUMNS``: the 5 regions, at every scale."""
+    return {"r_regionkey": np.arange(5, dtype=np.int64),
+            "r_name": HostStrings.from_table(REGIONS, np.arange(5))}
+
+
+def gen_partsupp(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
+    """``PARTSUPP_COLUMNS``: four suppliers drawn per part (a part's rows
+    are consecutive; row r is of part r // 4 + 1)."""
+    n_supp = table_rows("supplier", sf)
+    parts = []
+    for rng, start, n, _ci, _nc in _chunks("partsupp", sf, chunk_rows):
+        parts.append({
+            "ps_partkey": np.arange(start, start + n, dtype=np.int64) // 4
+            + 1,
+            "ps_suppkey": rng.integers(1, n_supp + 1, n).astype(np.int64)})
+    return _concat(parts, PARTSUPP_COLUMNS)
+
+
+#: table name -> generator
+GENERATORS = {"lineitem": gen_lineitem, "orders": gen_orders,
+              "customer": gen_customer, "supplier": gen_supplier,
+              "nation": gen_nation, "region": gen_region, "part": gen_part,
+              "partsupp": gen_partsupp}

@@ -1,6 +1,6 @@
 """Where a query's time goes on the card: one warm run of TPCx-BB q26,
-TPC-H q1, q3, q6, q12, q14 or q22, or TPC-DS q91 (through
-``Session.sql``) under
+a TPC-H query (q1, q3, q4, q6, q12-q16, q18, q21, q22), or TPC-DS q91
+(through ``Session.sql``) under
 ``torch.profiler`` (device time by kernel name,
 the run's wall time, the device's busy share of it and the port's kernel
 launches), then one under
@@ -8,7 +8,7 @@ launches), then one under
 not native work, so its shares only point at candidates).
 
     python -m spark_rapids_tpu_torch.benchmarks.profile_query \\
-        [--query q26|q14|q22|q91|q1|q3|q6|q12] [--sf 10]
+        [--query q26|q14|q22|q91|q1|q3|q4|...] [--sf 10]
 
 Prints one JSON line per query. Needs a CUDA device.
 """
@@ -21,17 +21,23 @@ import pstats
 import subprocess
 import time
 
+from spark_rapids_tpu_torch.benchmarks import tpch
+
+
+#: the queries the port runs: TPCx-BB q26, TPC-DS q91 and the TPC-H
+#: queries of ``tpch.INPUTS``
+QUERIES = ("q26", "q91") + tuple(tpch.INPUTS)
+
 
 def _plan_fn(query: str, sf: float):
-    from spark_rapids_tpu_torch.benchmarks import datagen, tpcds, tpch, \
-        tpcxbb
+    from spark_rapids_tpu_torch.benchmarks import datagen, tpcds, tpcxbb
 
     if query == "q26":
         ss, item = tpcds.gen_store_sales(sf), tpcds.gen_item(sf)
         return lambda: tpcxbb.q26(ss, item)
     if query == "q91":
         return _q91_plan_fn(tpcds.q91_tables(sf))
-    tables = [getattr(datagen, f"gen_{t}")(sf) for t in tpch.INPUTS[query]]
+    tables = [datagen.GENERATORS[t](sf) for t in tpch.INPUTS[query]]
     return lambda: getattr(tpch, query)(*tables)
 
 
@@ -104,9 +110,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q26", "q14", "q22", "q91", "q1", "q3",
-                                      "q6", "q12"),
-                    action="append")
+    ap.add_argument("--query", choices=QUERIES, action="append")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()

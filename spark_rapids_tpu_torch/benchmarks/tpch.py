@@ -1,11 +1,12 @@
-"""TPC-H q1, q3, q6, q12, q14 and q22 over in-memory tables (the
-counterpart of spark_rapids_tpu/benchmarks/tpch.py's functions of those
-names, the same plan trees), and numpy oracles. String columns are
-``HostStrings`` (``benchmarks/datagen.py``); the oracles read their codes
-and dictionaries."""
+"""TPC-H q1, q3, q4, q6, q12-q16, q18, q21 and q22 over in-memory tables
+(the counterpart of spark_rapids_tpu/benchmarks/tpch.py's functions of
+those names, the same plan trees, q18's lowered threshold included), and
+numpy oracles. String columns are ``HostStrings``
+(``benchmarks/datagen.py``); the oracles read their codes and
+dictionaries."""
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -15,7 +16,7 @@ from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.expressions import arithmetic as ar
 from spark_rapids_tpu_torch.expressions import predicates as P
 from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
-                                                           Sum)
+                                                           Max, Sum)
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Literal)
 from spark_rapids_tpu_torch.expressions.conditional import If
@@ -37,7 +38,14 @@ _TYPES = {"l_orderkey": dt.INT64, "l_partkey": dt.INT64,
           "c_acctbal": dt.FLOAT64, "c_phone": dt.STRING,
           "o_orderkey": dt.INT64, "o_custkey": dt.INT64,
           "o_orderdate": dt.DATE, "o_orderpriority": dt.STRING,
-          "o_shippriority": dt.INT32}
+          "o_shippriority": dt.INT32, "l_suppkey": dt.INT64,
+          "o_totalprice": dt.FLOAT64, "o_orderstatus": dt.STRING,
+          "c_name": dt.STRING, "c_nationkey": dt.INT64,
+          "p_brand": dt.STRING, "p_size": dt.INT32, "s_suppkey": dt.INT64,
+          "s_nationkey": dt.INT64, "s_acctbal": dt.FLOAT64,
+          "n_nationkey": dt.INT64, "n_name": dt.STRING,
+          "r_regionkey": dt.INT64, "r_name": dt.STRING,
+          "ps_partkey": dt.INT64, "ps_suppkey": dt.INT64}
 
 Q1_SHIPPED_BY = "1998-09-02"
 Q3_SEGMENT, Q3_DATE = "BUILDING", "1995-03-15"
@@ -47,10 +55,23 @@ Q12_HIGH = ("1-URGENT", "2-HIGH")
 Q12_FROM, Q12_TO = "1994-01-01", "1995-01-01"
 Q14_FROM, Q14_TO = "1995-09-01", "1995-10-01"
 Q22_CODES = ("13", "31", "23", "29", "30")
+Q4_FROM, Q4_TO = "1993-07-01", "1993-10-01"
+Q13_EXCLUDED = "1-URGENT"
+Q15_FROM, Q15_TO = "1996-01-01", "1996-04-01"
+Q16_BRAND, Q16_TYPE = "Brand#45", "MEDIUM"
+Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+Q16_ACCTBAL = -500.0
+Q18_QUANTITY = 100.0
+Q21_STATUS, Q21_NATION = "F", "SAUDI ARABIA"
 #: the tables each query reads, in its function's argument order
 INPUTS = {"q1": ("lineitem",), "q3": ("customer", "orders", "lineitem"),
-          "q6": ("lineitem",), "q12": ("orders", "lineitem"),
-          "q14": ("lineitem", "part"), "q22": ("customer", "orders")}
+          "q4": ("orders", "lineitem"), "q6": ("lineitem",),
+          "q12": ("orders", "lineitem"), "q13": ("customer", "orders"),
+          "q14": ("lineitem", "part"), "q15": ("lineitem", "supplier"),
+          "q16": ("part", "supplier", "partsupp"),
+          "q18": ("lineitem", "orders", "customer"),
+          "q21": ("lineitem", "orders", "supplier", "nation"),
+          "q22": ("customer", "orders")}
 
 
 def ref(i, t):
@@ -239,6 +260,181 @@ def q22(customer: Table, orders: Table) -> pn.PlanNode:
     return pn.SortNode([SortKeySpec.spark_default(0)], agg)
 
 
+def q4(orders: Table, lineitem: Table) -> pn.PlanNode:
+    """Order priority checking: one quarter's orders with a late line
+    (EXISTS as a left semi join), counted per priority."""
+    ords = pn.FilterNode(
+        P.And(P.GreaterThanOrEqual(ref(1, dt.DATE), _date(Q4_FROM)),
+              P.LessThan(ref(1, dt.DATE), _date(Q4_TO))),
+        _scan(orders, ["o_orderkey", "o_orderdate", "o_orderpriority"]))
+    li = pn.FilterNode(
+        P.LessThan(ref(1, dt.DATE), ref(2, dt.DATE)),
+        _scan(lineitem, ["l_orderkey", "l_commitdate", "l_receiptdate"]))
+    semi = pn.JoinNode("left_semi", ords, li, [0], [0])
+    agg = pn.AggregateNode(
+        [ref(2, dt.STRING)], [pn.AggCall(Count(), "order_count")],
+        semi, grouping_names=["o_orderpriority"])
+    return pn.SortNode([SortKeySpec.spark_default(0)], agg)
+
+
+def q13(customer: Table, orders: Table) -> pn.PlanNode:
+    """Customer distribution: a left join keeps the customers without
+    orders, then a count of counts."""
+    ords = pn.FilterNode(
+        P.Not(P.In(ref(2, dt.STRING), [Literal(Q13_EXCLUDED)])),
+        _scan(orders, ["o_orderkey", "o_custkey", "o_orderpriority"]))
+    # [c_custkey, o_orderkey 1, o_custkey 2, o_orderpriority 3]
+    co = pn.JoinNode("left", _scan(customer, ["c_custkey"]), ords, [0], [1])
+    counts = pn.AggregateNode(
+        [ref(0, dt.INT64)], [pn.AggCall(Count(ref(1, dt.INT64)), "c_count")],
+        co, grouping_names=["c_custkey"])
+    dist = pn.AggregateNode(
+        [ref(1, dt.INT64)], [pn.AggCall(Count(), "custdist")],
+        counts, grouping_names=["c_count"])
+    return pn.SortNode([SortKeySpec.spark_default(1, ascending=False),
+                        SortKeySpec.spark_default(0, ascending=False)],
+                       dist)
+
+
+def q15(lineitem: Table, supplier: Table) -> pn.PlanNode:
+    """Top supplier: the suppliers whose quarter's revenue equals the
+    greatest (the scalar MAX subquery joined on lit(1))."""
+    li = pn.FilterNode(
+        P.And(P.GreaterThanOrEqual(ref(3, dt.DATE), _date(Q15_FROM)),
+              P.LessThan(ref(3, dt.DATE), _date(Q15_TO))),
+        _scan(lineitem, ["l_suppkey", "l_extendedprice", "l_discount",
+                         "l_shipdate"]))
+    rev = ar.Multiply(ref(1, dt.FLOAT64),
+                      ar.Subtract(Literal(1.0), ref(2, dt.FLOAT64)))
+    proj = pn.ProjectNode([Alias(ref(0, dt.INT64), "supplier_no"),
+                           Alias(rev, "rev")], li)
+    revenue = pn.AggregateNode(
+        [ref(0, dt.INT64)], [pn.AggCall(Sum(ref(1, dt.FLOAT64)),
+                                        "total_revenue")],
+        proj, grouping_names=["supplier_no"])
+    max_rev = pn.AggregateNode(
+        [], [pn.AggCall(Max(ref(1, dt.FLOAT64)), "max_rev")], revenue)
+    # [supplier_no, total_revenue, one 2, max_rev 3, one 4]
+    j = pn.JoinNode("inner", _lit_one(revenue, ["supplier_no",
+                                                "total_revenue"]),
+                    _lit_one(max_rev, ["max_rev"]), [2], [1])
+    top = pn.FilterNode(P.EqualTo(ref(1, dt.FLOAT64), ref(3, dt.FLOAT64)),
+                        j)
+    # + [s_suppkey 5, s_acctbal 6]
+    js = pn.JoinNode("inner", top,
+                     _scan(supplier, ["s_suppkey", "s_acctbal"]), [0], [0])
+    proj2 = pn.ProjectNode([Alias(ref(5, dt.INT64), "s_suppkey"),
+                            Alias(ref(1, dt.FLOAT64), "total_revenue")], js)
+    return pn.SortNode([SortKeySpec.spark_default(0)], proj2)
+
+
+def q16(part: Table, supplier: Table, partsupp: Table) -> pn.PlanNode:
+    """Parts/supplier relationship: the suppliers of each brand, type and
+    size, past a left anti join of the bad suppliers, counted distinct."""
+    good_part = pn.FilterNode(
+        P.And(P.Not(P.EqualTo(ref(1, dt.STRING), Literal(Q16_BRAND))),
+              P.And(P.Not(StartsWith(ref(2, dt.STRING), Q16_TYPE)),
+                    P.In(ref(3, dt.INT32), [Literal(k, dt.INT32)
+                                            for k in Q16_SIZES]))),
+        _scan(part, ["p_partkey", "p_brand", "p_type", "p_size"]))
+    bad = pn.FilterNode(
+        P.LessThan(ref(1, dt.FLOAT64), Literal(Q16_ACCTBAL)),
+        _scan(supplier, ["s_suppkey", "s_acctbal"]))
+    ps_ok = pn.JoinNode("left_anti",
+                        _scan(partsupp, ["ps_partkey", "ps_suppkey"]), bad,
+                        [1], [0])
+    # + [p_partkey 2, p_brand 3, p_type 4, p_size 5]
+    pp = pn.JoinNode("inner", ps_ok, good_part, [0], [0])
+    agg = pn.AggregateNode(
+        [ref(3, dt.STRING), ref(4, dt.STRING), ref(5, dt.INT32)],
+        [pn.AggCall(Count(ref(1, dt.INT64), distinct=True),
+                    "supplier_cnt")],
+        pp, grouping_names=["p_brand", "p_type", "p_size"])
+    return pn.SortNode([SortKeySpec.spark_default(3, ascending=False),
+                        SortKeySpec.spark_default(0),
+                        SortKeySpec.spark_default(1),
+                        SortKeySpec.spark_default(2)], agg)
+
+
+def q18(lineitem: Table, orders: Table, customer: Table) -> pn.PlanNode:
+    """Large volume customer: the orders of more than ``Q18_QUANTITY``
+    units (a grouped filter as a left semi join), joined back to their
+    customer and lines, top 100 by price."""
+    big = pn.FilterNode(
+        P.GreaterThan(ref(1, dt.FLOAT64), Literal(Q18_QUANTITY)),
+        pn.AggregateNode([ref(0, dt.INT64)],
+                         [pn.AggCall(Sum(ref(1, dt.FLOAT64)), "sq")],
+                         _scan(lineitem, ["l_orderkey", "l_quantity"]),
+                         grouping_names=["l_orderkey"]))
+    ord_big = pn.JoinNode(
+        "left_semi", _scan(orders, ["o_orderkey", "o_custkey",
+                                    "o_totalprice", "o_orderdate"]),
+        big, [0], [0])
+    # [o... 0-3, c_custkey 4, c_name 5]
+    oc = pn.JoinNode("inner", ord_big,
+                     _scan(customer, ["c_custkey", "c_name"]), [1], [0])
+    # + [l_orderkey 6, l_quantity 7]
+    ocl = pn.JoinNode("inner", oc,
+                      _scan(lineitem, ["l_orderkey", "l_quantity"]),
+                      [0], [0])
+    agg = pn.AggregateNode(
+        [ref(5, dt.STRING), ref(4, dt.INT64), ref(0, dt.INT64),
+         ref(3, dt.DATE), ref(2, dt.FLOAT64)],
+        [pn.AggCall(Sum(ref(7, dt.FLOAT64)), "sum_qty")],
+        ocl, grouping_names=["c_name", "c_custkey", "o_orderkey",
+                             "o_orderdate", "o_totalprice"])
+    sort = pn.SortNode([SortKeySpec.spark_default(4, ascending=False),
+                        SortKeySpec.spark_default(3)], agg)
+    return pn.LimitNode(100, sort)
+
+
+def q21(lineitem: Table, orders: Table, supplier: Table, nation: Table
+        ) -> pn.PlanNode:
+    """Suppliers who kept orders waiting: per order, distinct suppliers
+    at all and late (EXISTS / NOT EXISTS decorrelated), failed orders
+    with several suppliers and one late, the late lines of those orders,
+    counted per Saudi supplier."""
+    def li():
+        return _scan(lineitem, ["l_orderkey", "l_suppkey", "l_commitdate",
+                                "l_receiptdate"])
+
+    def late():
+        return pn.FilterNode(P.GreaterThan(ref(3, dt.DATE),
+                                           ref(2, dt.DATE)), li())
+
+    def suppliers(child):
+        return pn.AggregateNode(
+            [ref(0, dt.INT64)],
+            [pn.AggCall(Count(ref(1, dt.INT64), distinct=True), "n")],
+            child, grouping_names=["l_orderkey"])
+
+    multi = pn.FilterNode(P.GreaterThan(ref(1, dt.INT64),
+                                        Literal(1, dt.INT64)),
+                          suppliers(li()))
+    solo_late = pn.FilterNode(P.EqualTo(ref(1, dt.INT64),
+                                        Literal(1, dt.INT64)),
+                              suppliers(late()))
+    ords = pn.FilterNode(
+        P.EqualTo(ref(1, dt.STRING), Literal(Q21_STATUS)),
+        _scan(orders, ["o_orderkey", "o_orderstatus"]))
+    o1 = pn.JoinNode("left_semi", ords, multi, [0], [0])
+    o2 = pn.JoinNode("left_semi", o1, solo_late, [0], [0])
+    late_on = pn.JoinNode("left_semi", late(), o2, [0], [0])
+    nation_f = pn.FilterNode(
+        P.EqualTo(ref(1, dt.STRING), Literal(Q21_NATION)),
+        _scan(nation, ["n_nationkey", "n_name"]))
+    sn = pn.JoinNode("inner", _scan(supplier, ["s_suppkey", "s_nationkey"]),
+                     nation_f, [1], [0])
+    # [late 0-3, s_suppkey 4, s_nationkey 5, n_nationkey 6, n_name 7]
+    ls = pn.JoinNode("inner", late_on, sn, [1], [0])
+    agg = pn.AggregateNode(
+        [ref(4, dt.INT64)], [pn.AggCall(Count(), "numwait")],
+        ls, grouping_names=["s_suppkey"])
+    sort = pn.SortNode([SortKeySpec.spark_default(1, ascending=False),
+                        SortKeySpec.spark_default(0)], agg)
+    return pn.LimitNode(100, sort)
+
+
 def q14_numpy(lineitem: Table, part: Table) -> Table:
     """q14 in plain numpy: ``promo_revenue``, None when the month has no
     matched revenue."""
@@ -398,3 +594,150 @@ def q12_numpy(orders: Table, lineitem: Table) -> Table:
             "low_line_count": np.bincount(inv, weights=1 - h,
                                           minlength=len(groups)
                                           ).astype(np.int64)}
+
+
+# -- oracles of q4, q13, q15, q16, q18 and q21 -------------------------------
+
+
+def _counted(codes: np.ndarray, dictionary: np.ndarray, name: str,
+             count: str) -> Table:
+    """Rows per string code, the codes present in string order."""
+    groups, n = np.unique(codes, return_counts=True)
+    return {name: dictionary[groups], count: n.astype(np.int64)}
+
+
+def _runs(sorted_keys: np.ndarray) -> Tuple:
+    """(each distinct key of a sorted array, its run length)."""
+    starts = np.flatnonzero(np.r_[True, sorted_keys[1:] != sorted_keys[:-1]]
+                            ) if len(sorted_keys) else np.zeros(0, np.int64)
+    return sorted_keys[starts], np.diff(np.r_[starts, len(sorted_keys)])
+
+
+def _distinct_per(key: np.ndarray, value: np.ndarray) -> Tuple:
+    """(keys, the number of distinct values of each), for non-negative
+    values whose product with the keys fits an int64; by one sort (no
+    ``np.unique``, which numpy 2.3 runs in minutes on 60M sorted
+    integers)."""
+    span = int(value.max(initial=0)) + 1
+    pairs = _runs(np.sort(key.astype(np.int64) * span + value))[0]
+    return _runs(pairs // span)
+
+
+def _member(a: np.ndarray, of: np.ndarray) -> np.ndarray:
+    """Per element of ``a`` (non-negative integers): whether it is in
+    ``of``, looked up in a table over their range."""
+    table = np.zeros(int(max(a.max(initial=0), of.max(initial=0))) + 1,
+                     dtype=bool)
+    table[of] = True
+    return table[a]
+
+
+def q4_numpy(orders: Table, lineitem: Table) -> Table:
+    """q4 in plain numpy: per priority, in string order."""
+    d = orders["o_orderdate"]
+    late = lineitem["l_commitdate"] < lineitem["l_receiptdate"]
+    live = (d >= days(Q4_FROM)) & (d < days(Q4_TO)) & \
+        np.isin(orders["o_orderkey"], lineitem["l_orderkey"][late])
+    prio = orders["o_orderpriority"]
+    return _counted(prio.codes[live], prio.dictionary, "o_orderpriority",
+                    "order_count")
+
+
+def q13_numpy(customer: Table, orders: Table) -> Table:
+    """q13 in plain numpy: customers per order count (orders of priority
+    ``Q13_EXCLUDED`` left out), most customers first."""
+    keep = ~_is(orders["o_orderpriority"], [Q13_EXCLUDED])
+    cust = customer["c_custkey"]
+    per = np.bincount(orders["o_custkey"][keep],
+                      minlength=int(cust.max(initial=0)) + 1)
+    c_count, custdist = np.unique(per[cust], return_counts=True)
+    top = np.lexsort((-c_count, -custdist))
+    return {"c_count": c_count[top].astype(np.int64),
+            "custdist": custdist[top].astype(np.int64)}
+
+
+def q15_numpy(lineitem: Table, supplier: Table) -> Table:
+    """q15 in plain numpy: the suppliers of the greatest revenue."""
+    d = lineitem["l_shipdate"]
+    live = (d >= days(Q15_FROM)) & (d < days(Q15_TO))
+    key = lineitem["l_suppkey"][live]
+    rev = lineitem["l_extendedprice"][live] * \
+        (1.0 - lineitem["l_discount"][live])
+    keys, inv = np.unique(key, return_inverse=True)
+    total = np.bincount(inv, weights=rev, minlength=len(keys))
+    top = (total == total.max()) & np.isin(keys, supplier["s_suppkey"]) \
+        if len(keys) else np.zeros(0, dtype=bool)
+    return {"s_suppkey": keys[top], "total_revenue": total[top]}
+
+
+def q16_numpy(part: Table, supplier: Table, partsupp: Table) -> Table:
+    """q16 in plain numpy: distinct good suppliers per brand, type and
+    size of the chosen parts."""
+    ok = (~_is(part["p_brand"], [Q16_BRAND]) &
+          ~_entries(part["p_type"],
+                    lambda e: np.char.startswith(e, Q16_TYPE)) &
+          np.isin(part["p_size"], Q16_SIZES))
+    at = _lookup(part["p_partkey"][ok], np.flatnonzero(ok), -1)
+    bad = supplier["s_suppkey"][supplier["s_acctbal"] < Q16_ACCTBAL]
+    pk, sk = partsupp["ps_partkey"], partsupp["ps_suppkey"]
+    row = np.where(pk < len(at), at[np.minimum(pk, len(at) - 1)], -1)
+    keep = (row >= 0) & ~np.isin(sk, bad)
+    row, sk = row[keep], sk[keep]
+    brand, ptype = part["p_brand"], part["p_type"]
+    b, t, z = (brand.codes[row].astype(np.int64),
+               ptype.codes[row].astype(np.int64),
+               part["p_size"][row].astype(np.int64))
+    group = (b * len(ptype.dictionary) + t) * 64 + z
+    groups, cnt = _distinct_per(group, sk)
+    b = groups // 64 // len(ptype.dictionary)
+    t = groups // 64 % len(ptype.dictionary)
+    z = groups % 64
+    top = np.lexsort((z, t, b, -cnt))
+    return {"p_brand": brand.dictionary[b[top]],
+            "p_type": ptype.dictionary[t[top]],
+            "p_size": z[top].astype(np.int32),
+            "supplier_cnt": cnt[top].astype(np.int64)}
+
+
+def q18_numpy(lineitem: Table, orders: Table, customer: Table) -> Table:
+    """q18 in plain numpy: orders are unique by key and customers by key,
+    so each big order is one group."""
+    lk = lineitem["l_orderkey"]
+    qty = np.bincount(lk, weights=lineitem["l_quantity"])
+    okey = orders["o_orderkey"]
+    big = np.flatnonzero((okey < len(qty)) &
+                         (qty[np.minimum(okey, len(qty) - 1)] >
+                          Q18_QUANTITY))
+    name_at = _lookup(customer["c_custkey"],
+                      np.arange(len(customer["c_custkey"])), -1)
+    cust = orders["o_custkey"][big]
+    big = big[name_at[np.minimum(cust, len(name_at) - 1)] >= 0]
+    price, date = orders["o_totalprice"][big], orders["o_orderdate"][big]
+    top = big[np.lexsort((date, -price))[:100]]
+    cust = orders["o_custkey"][top]
+    names = customer["c_name"]
+    return {"c_name": names.dictionary[names.codes[name_at[cust]]],
+            "c_custkey": cust, "o_orderkey": okey[top],
+            "o_orderdate": orders["o_orderdate"][top],
+            "o_totalprice": orders["o_totalprice"][top],
+            "sum_qty": qty[okey[top]]}
+
+
+def q21_numpy(lineitem: Table, orders: Table, supplier: Table,
+              nation: Table) -> Table:
+    """q21 in plain numpy: per Saudi supplier, its late lines on failed
+    orders with several suppliers of which it alone was late."""
+    lk, sk = lineitem["l_orderkey"], lineitem["l_suppkey"]
+    late = lineitem["l_receiptdate"] > lineitem["l_commitdate"]
+    keys, n_all = _distinct_per(lk, sk)
+    late_keys, n_late = _distinct_per(lk[late], sk[late])
+    ok = _is(orders["o_orderstatus"], [Q21_STATUS])
+    okey = orders["o_orderkey"]
+    ok &= _member(okey, keys[n_all > 1]) & \
+        _member(okey, late_keys[n_late == 1])
+    saudi = nation["n_nationkey"][_is(nation["n_name"], [Q21_NATION])]
+    supp = supplier["s_suppkey"][_member(supplier["s_nationkey"], saudi)]
+    rows = late & _member(lk, okey[ok]) & _member(sk, supp)
+    s_key, numwait = np.unique(sk[rows], return_counts=True)
+    top = np.lexsort((s_key, -numwait))[:100]
+    return {"s_suppkey": s_key[top], "numwait": numwait[top].astype(np.int64)}

@@ -11,9 +11,11 @@ through apply_overrides -> collect ending in a synchronize. The plans
 come from ``profile_query._plan_fn`` of the tree being timed, which
 every tree of the port has had since TPC-H q14 and q22 (q91, through
 ``Session.sql``, since the SQL front end; q1, q3, q6 and q12 since
-host-encoded strings). Prints one JSON
-line per query with the card's name and power limit. Needs a CUDA
-device.
+host-encoded strings; q4, q13, q15, q16, q18 and q21 since the outer,
+semi and full joins). ``--query q5lite`` times the q5lite step (a
+fused filter and a group-by of 4M rows over 65,536 keys) on data already
+on the card. Prints one JSON line per query with the card's name and
+power limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,18 +25,33 @@ import subprocess
 import time
 
 
-def main() -> int:
+def _runner(query: str, sf: float):
+    """One run of ``query``: the q5lite step (its 4M rows, whatever
+    ``sf``) over data already on the card, or the query's plan through
+    apply_overrides -> collect."""
     import torch
 
-    import spark_rapids_tpu_torch
+    if query == "q5lite":
+        from spark_rapids_tpu_torch.benchmarks import q5lite
+
+        data = [torch.from_numpy(a).cuda() for a in q5lite.gen_data()]
+        return lambda: q5lite.step(*data)
     from spark_rapids_tpu_torch.benchmarks.profile_query import _plan_fn
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
+    plan_fn = _plan_fn(query, sf)
+    return lambda: collect(apply_overrides(plan_fn(), device="cuda"))
+
+
+def main() -> int:
+    import torch
+
+    import spark_rapids_tpu_torch
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q26", "q14", "q22", "q91", "q1", "q3",
-                                      "q6", "q12"),
-                    action="append")
+    # q5lite, or any query of the timed tree's ``profile_query._plan_fn``
+    ap.add_argument("--query", action="append")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
@@ -45,12 +62,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     for query in args.query or ["q26", "q14", "q22"]:
-        plan_fn = _plan_fn(query, args.sf)
+        run = _runner(query, args.sf)
         walls = []
         for i in range(args.repeat + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            collect(apply_overrides(plan_fn(), device="cuda"))
+            run()
             torch.cuda.synchronize()
             if i:
                 walls.append(time.perf_counter() - t0)

@@ -7,16 +7,18 @@ projection evaluates each aggregate over its partials.
 
 With no grouping keys every step is a whole-batch reduction to one row,
 and an empty input still yields one row: count 0, every other aggregate
-null (the reference's ``_empty_global_partials``)."""
+null (the reference's ``_empty_global_partials``). A distinct aggregate
+must have been rewritten by ``plan/optimizer`` first."""
 from __future__ import annotations
 
 from typing import Iterator, List
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
-from spark_rapids_tpu_torch.columnar.column import Column
+from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
 from spark_rapids_tpu_torch.execs.base import TorchExec
 from spark_rapids_tpu_torch.execs.basic import project
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
@@ -37,6 +39,11 @@ class HashAggregateExec(TorchExec):
         self.input_exprs: List[Expression] = list(grouping)
         self.update_specs: List[AggSpec] = []
         for call in aggs:
+            if call.fn.distinct:
+                raise NotImplementedError(
+                    f"{call.name}: a distinct aggregate reaches the exec "
+                    "only through plan/optimizer.rewrite_distinct_"
+                    "aggregates")
             ordinal = -1
             if call.fn.input is not None:
                 ordinal = len(self.input_exprs)
@@ -73,9 +80,12 @@ class HashAggregateExec(TorchExec):
         cols = []
         for spec, t in zip(self.update_specs, self.merge_types):
             data = torch.zeros(1, dtype=t.torch_dtype, device=self.device)
-            valid = None if spec.op in ("count", "count_star") else \
-                torch.zeros(1, dtype=torch.bool, device=self.device)
-            cols.append(Column(t, data, valid))
+            if spec.op in ("count", "count_star"):
+                cols.append(Column(t, data))
+                continue
+            valid = torch.zeros(1, dtype=torch.bool, device=self.device)
+            cols.append(StringColumn(data, np.array([], dtype=object), valid)
+                        if t is dt.STRING else Column(t, data, valid))
         return ColumnarBatch(cols, 1)
 
     def execute(self) -> Iterator[ColumnarBatch]:

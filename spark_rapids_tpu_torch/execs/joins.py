@@ -1,9 +1,11 @@
 """Broadcast hash join exec (the counterpart of
 spark_rapids_tpu/execs/joins.py): the build child is drained and
 prepared once (hash, sort, probe table), and every stream batch probes
-it. Inner joins emit stream then build columns, filtered by the residual
-condition when there is one; left anti joins emit the stream rows
-without a match, stream columns only."""
+it. Inner and left joins emit stream then build columns, semi and anti
+joins the stream columns only; only an inner join takes a residual
+condition, applied as a filter after the join, as the reference asserts.
+A full join emits each unmatched build row once, so, as in the
+reference, its stream side is drained into one batch first."""
 from __future__ import annotations
 
 from typing import Iterator, List, Optional
@@ -16,7 +18,14 @@ from spark_rapids_tpu_torch.ops.concat import concat_batches
 from spark_rapids_tpu_torch.ops.join import equi_join, prepare_build
 
 #: plan join kind -> ops.join join type (the reference's ``_KIND_MAP``)
-KIND_MAP = {"inner": "inner", "left_anti": "leftanti"}
+KIND_MAP = {"inner": "inner", "left": "left", "left_semi": "leftsemi",
+            "left_anti": "leftanti", "full": "full"}
+
+
+def _drain(child: TorchExec, device) -> ColumnarBatch:
+    parts = [b for b in child.execute() if b.num_rows]
+    return concat_batches(parts) if parts else \
+        ColumnarBatch.empty(child.schema, device)
 
 
 class BroadcastHashJoinExec(TorchExec):
@@ -39,13 +48,13 @@ class BroadcastHashJoinExec(TorchExec):
     def execute(self) -> Iterator[ColumnarBatch]:
         left_types = list(self.children[0].schema.types)
         right_types = list(self.children[1].schema.types)
-        parts = [b for b in self.children[1].execute() if b.num_rows]
-        build = concat_batches(parts) if parts else \
-            ColumnarBatch.empty(self.children[1].schema, self.device)
+        build = _drain(self.children[1], self.device)
         prepared = prepare_build(build, self.right_keys, right_types,
                                  [left_types[o] for o in self.left_keys])
+        stream = [_drain(self.children[0], self.device)] \
+            if self.join_type == "full" else self.children[0].execute()
         saw = False
-        for b in self.children[0].execute():
+        for b in stream:
             if b.num_rows == 0 and saw:
                 continue
             saw = True

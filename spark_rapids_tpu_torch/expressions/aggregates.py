@@ -2,7 +2,9 @@
 spark_rapids_tpu/expressions/aggregates.py): each declares its update
 half (raw rows -> partial columns) and merge half (partials -> partials)
 as group-by ops, plus its final evaluation over the partials. The
-aggregate exec drives both halves."""
+aggregate exec drives both halves. A ``distinct`` count or sum is
+rewritten away before it runs (``plan/optimizer.rewrite_distinct_
+aggregates``)."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -33,9 +35,64 @@ class AggregateFunction(Expression):
         return partials[0]
 
 
-class Sum(AggregateFunction):
+class _OneOp(AggregateFunction):
+    """An aggregate of its input's type whose update and merge are one
+    group-by op, ``op``."""
+
+    op = ""
+
     def __init__(self, child: Expression):
         super().__init__([child])
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    def partial_types(self):
+        return [self.dtype]
+
+    def update_ops(self):
+        return [self.op]
+
+    def merge_ops(self):
+        return [self.op]
+
+
+class Min(_OneOp):
+    """min: null over no valid rows; a float NaN wins (the reference's
+    ``jnp.minimum``); strings by dictionary code, which is string order."""
+
+    op = "min"
+
+
+class Max(_OneOp):
+    op = "max"
+
+
+class First(_OneOp):
+    """first: the first row's value, null when that row is null (Spark's
+    ``first`` with ignoreNulls false); with ``ignore_nulls`` the first
+    valid value (``any_valid``)."""
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    @property
+    def op(self):
+        return "any_valid" if self.ignore_nulls else "first"
+
+
+class Last(_OneOp):
+    """last: the last row's value, null when that row is null."""
+
+    op = "last"
+
+
+class Sum(AggregateFunction):
+    def __init__(self, child: Expression, distinct: bool = False):
+        super().__init__([child])
+        self.distinct = distinct
 
     @property
     def dtype(self):
@@ -56,8 +113,10 @@ class Sum(AggregateFunction):
 class Count(AggregateFunction):
     """count(expr); count(*) when child is None."""
 
-    def __init__(self, child: Optional[Expression] = None):
+    def __init__(self, child: Optional[Expression] = None,
+                 distinct: bool = False):
         super().__init__([child] if child is not None else [])
+        self.distinct = distinct
 
     @property
     def dtype(self):

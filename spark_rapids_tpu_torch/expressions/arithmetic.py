@@ -10,8 +10,8 @@ operand and a result that are subnormal count as a zero of their sign
 they are, as XLA's constant folder does. What XLA rewrites before it
 runs (literal chains, division by a literal, identities, fused
 multiply-adds) is rewritten once per plan by ``expressions.folding``,
-which makes the ``Identity``, ``Zero`` and ``MultiplyAdd`` nodes
-below.
+which makes the ``Identity``, ``Constant``, ``Zero`` and ``MultiplyAdd``
+nodes below.
 """
 from __future__ import annotations
 
@@ -158,16 +158,17 @@ class Identity(Expression):
         return ColV(self._dtype, data, validity)
 
 
-class Zero(Expression):
-    """What XLA makes of integer ``x - x`` and ``x * 0``: a zero of
-    ``dtype`` in the data, null where any of ``sources`` is null (the
-    reference keeps the validity apart from the folded data)."""
+class Constant(Expression):
+    """What XLA makes of a literal combined with an integer zero
+    (``-0.0 - (i * 0)``): the constant ``value`` of ``dtype`` in the
+    data, null where any of ``sources`` is null (the reference keeps the
+    validity apart from the folded data)."""
 
-    value = 0
-
-    def __init__(self, dtype: dt.DType, sources: Sequence[Expression]):
+    def __init__(self, dtype: dt.DType, sources: Sequence[Expression],
+                 value):
         super().__init__(sources)
         self._dtype = dtype
+        self.value = value
 
     @property
     def dtype(self) -> dt.DType:
@@ -178,10 +179,18 @@ class Zero(Expression):
         if null:
             return Scalar(self._dtype, None)
         if validity is None:
-            return Scalar(self._dtype, 0)
-        return ColV(self._dtype, torch.zeros(
-            ctx.num_rows, dtype=self._dtype.torch_dtype, device=ctx.device),
-            validity)
+            return Scalar(self._dtype, self.value)
+        return ColV(self._dtype, torch.full(
+            (ctx.num_rows,), self.value, dtype=self._dtype.torch_dtype,
+            device=ctx.device), validity)
+
+
+class Zero(Constant):
+    """What XLA makes of integer ``x - x`` and ``x * 0``: a zero of
+    ``dtype`` in the data, null where any of ``sources`` is null."""
+
+    def __init__(self, dtype: dt.DType, sources: Sequence[Expression]):
+        super().__init__(dtype, sources, 0)
 
 
 class MultiplyAdd(Expression):

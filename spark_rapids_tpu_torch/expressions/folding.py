@@ -18,7 +18,9 @@ tries them at one operation:
 - integer ``x - x`` (one column twice), ``x * 0`` and ``0 * x`` are a
   zero that keeps the nulls of x (``arithmetic.Zero``); from the next
   pass on it is a constant, so ``d + (i - i)`` is d untouched, null
-  where i is.
+  where i is; a literal that meets it is a constant that keeps those
+  nulls (``arithmetic.Constant``), so ``-0.0 - (i * 0) + d`` is d
+  untouched too.
 - ``(x + c1) + c2`` is ``x + (c1 + c2)``, ``(c1 - x) + c2`` is
   ``(c1 + c2) - x``, and ``(x * c1) * c2`` is ``x * (c1 * c2)``.
   Nothing else reassociates: ``c2 - (x + c1)``, ``c / x``, and a chain
@@ -83,13 +85,22 @@ def _float_op(e: Expression, kind) -> bool:
     return isinstance(e, kind) and e.dtype.is_floating
 
 
-def _const(e: Expression, op, *args: Literal) -> Literal:
-    """``op`` over the literals, in ``e``'s float type, as XLA's constant
-    folder computes it (no flush of subnormals)."""
+def _const(e: Expression, op, *args: Expression) -> Expression:
+    """``op`` over the constants, in ``e``'s float type, as XLA's
+    constant folder computes it (no flush of subnormals): a literal, or
+    a ``Constant`` null where the ``Constant`` arguments are."""
     kt = e.dtype.np_dtype.type
     with np.errstate(all="ignore"):
         v = op(*(kt(a.value) for a in args))
+    sources = [s for a in args if isinstance(a, ar.Constant)
+               for s in a.children]
+    if sources:
+        return ar.Constant(e.dtype, sources, float(v))
     return Literal(float(v), e.dtype)
+
+
+def _constant(e: Expression) -> bool:
+    return _literal(e) or isinstance(e, ar.Constant)
 
 
 def _fold_constants(e: Expression) -> Expression:
@@ -97,7 +108,7 @@ def _fold_constants(e: Expression) -> Expression:
     literals, and the divisors of a division when all are literals."""
     e = _with_children(e, [_fold_constants(c) for c in e.children])
     if any(_float_op(e, k) for k in _BINARY) and \
-            all(_literal(c) for c in e.children):
+            all(_constant(c) for c in e.children):
         op = {ar.Add: np.add, ar.Subtract: np.subtract,
               ar.Multiply: np.multiply}[type(e)]
         return _const(e, op, *e.children)
@@ -128,7 +139,7 @@ def _rule(e: Expression, converted: bool) -> Optional[Expression]:
     ``e`` is not a constant."""
 
     def const(x: Expression) -> bool:
-        if isinstance(x, ar.Zero):
+        if isinstance(x, ar.Constant):
             return converted
         return _literal(x) and (converted or x.dtype is e.dtype)
 
@@ -183,10 +194,13 @@ def _identity(x: Expression, e: Expression, unit: Expression
               ) -> Expression:
     """What XLA leaves of ``e`` = ``x + 0`` or ``x * 1``: x itself, or x
     converted to ``e``'s type; null where ``unit`` is, when it is a
-    ``Zero``."""
-    nulls = [unit] if isinstance(unit, ar.Zero) else []
+    ``Zero``. A literal that meets such a zero (``-0.0 - (i * 0)``) is a
+    constant from the next pass on, null where the zero is."""
+    nulls = [unit] if isinstance(unit, ar.Constant) else []
     if isinstance(x, ar.Zero):
         return ar.Zero(e.dtype, x.children + nulls)
+    if nulls and _constant(x):
+        return _const(e, lambda v, _zero: v, x, unit)
     if x.dtype is e.dtype and not nulls:
         return x
     return ar.Identity(x, e.dtype, nulls_of=nulls)

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("sort", "join", "strings")
+SOURCES = ("sort", "join", "strings", "groupby")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"partition_order": 0, "radix_order": 0,
                             "probe": 0, "match_table": 0, "like_table": 0,
-                            "substring": 0}
+                            "substring": 0, "seg_sum": 0}
 
 #: kernel name -> the size (rows or entries) of each launch, kept only
 #: while :func:`record_sizes` has it on
@@ -155,6 +155,10 @@ def _declare(stem: str, lib: ctypes.CDLL) -> None:
         lib.srt_k6_substring.argtypes = [_P, _P, _I, _I, _LL, _LL, _I, _P,
                                          _P, _P]
         lib.srt_k6_substring.restype = _I
+    elif stem == "groupby":
+        lib.srt_seg_sum_level.argtypes = [_P, _I, _P, _P, _P, _LL, _LL, _I,
+                                          _P, _P]
+        lib.srt_seg_sum_level.restype = _I
 
 
 def check(err: int, what: str) -> None:

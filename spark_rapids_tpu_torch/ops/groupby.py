@@ -1,25 +1,45 @@
-"""Group-by aggregation by sorting (the counterpart of
-spark_rapids_tpu/ops/groupby.py).
+"""Group-by aggregation (the counterpart of spark_rapids_tpu/ops/groupby.py).
 
-1. One stable sort clusters equal keys (nulls group first; NaN == NaN and
-   -0.0 == 0.0). When every key's value range is known on the host
-   (string dictionaries always; numeric keys when the caller passes
-   ``key_ranges``, as the q5lite step does) all keys pack into one
-   int32/int64 lane and the sort is a single ``torch.sort``; otherwise
-   the keys sort as (validity-rank, equality lanes...) over the live rows.
-2. Group boundaries are rows where a sorted lane changes.
-3. Aggregates reduce each segment.
+Two paths, chosen as the reference chooses them:
 
-Float sums are per-segment sums, never differences of one global prefix
+- **Dense** (``_dense_groupby``): when every key's value range is known on
+  the host (string dictionaries and booleans always) and the packed key
+  space has at most ``_DENSE_MAX_GROUPS`` slots (TPC-H q1's returnflag x
+  linestatus, q4's priorities, q12's ship modes), each row maps to a
+  slot code and each aggregate reduces per slot with no sort. The counts
+  are one ``torch.bincount`` over the codes and the float sums another,
+  over slot x column (on the card each block adds its rows into a
+  histogram in shared memory, then each bin of each block into the
+  result: atomic adds whose order is not fixed, so the last bits of a
+  float sum may differ from run to run); integer sums, min, max,
+  first and last reduce a masked [slots, rows] broadcast in chunks, as
+  the reference's sweep does.
+- **Sort** (``_groupby``): one stable sort clusters equal keys (nulls
+  group first; NaN == NaN and -0.0 == 0.0). When every key's range is
+  known all keys pack into one int32/int64 lane and the sort is a single
+  ``torch.sort``; otherwise the keys sort as (validity-rank, equality
+  lanes...) over the live rows. Group boundaries are rows where a sorted
+  lane changes, and each aggregate reduces each group's contiguous rows.
+
+Float sums are per-group sums, never differences of one global prefix
 sum: the global prefix's differences carry rounding error that scales
 with the running prefix of OTHER groups (catastrophic cancellation when a
 huge group precedes a tiny one) and an Inf/NaN would poison every later
-group. Per-segment sums confine both to the group they belong to. Integer
-sums and counts are exact prefix-sum differences (exact under wrap).
+group. On the sort path each group's rows fold in row order in pieces
+of 8, then the pieces the same way (``kernels.groupby``: ``seg_sum``,
+a kernel on the card, and ``seg_fold``; in the role of the reference's
+``_seg_scan``): no step combines rows of two groups, so error and poison
+stay in the group they belong to, and no float is added atomically.
+Integer sums and counts are exact prefix-sum differences (exact under
+wrap).
 
+The ops are the reference's but the central moments: sum, min, max,
+count, count_star, first, last and any_valid (the first valid value).
+As on the reference's XLA backend, a float min, max or sum that is
+subnormal is a zero of its sign (``sortkeys.flush_subnormals``, C1), and
+so is the sort path's any_valid; first, last and the dense path's
+any_valid return the row's value untouched.
 Rows masked out by ``live_mask`` (a fused filter) never reach a group.
-Only the ops the ported paths use are here: sum, count and count_star,
-which is also the merge set of Count, Sum and Average. Others raise.
 Grand aggregates (no keys) are whole-batch reductions
 (:func:`reduce_aggregate`), with no sort.
 """
@@ -33,14 +53,26 @@ import torch
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
-from spark_rapids_tpu_torch.ops.sortkeys import stable_lexsort
+from spark_rapids_tpu_torch.kernels import groupby as kgb
+from spark_rapids_tpu_torch.ops.sortkeys import (flush_subnormals,
+                                                 stable_lexsort)
 
-AGG_OPS = ("sum", "count", "count_star")
+AGG_OPS = ("sum", "min", "max", "count", "count_star", "first", "last",
+           "any_valid")
+
+#: above this many slots the per-slot sweep loses to the sort (the
+#: reference's bound)
+_DENSE_MAX_GROUPS = 128
+#: elements of one masked [slots, rows] chunk of the dense sweep
+_SWEEP_ELEMS = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
 class AggSpec:
-    """One aggregation: op name + input ordinal (-1 for count_star)."""
+    """One aggregation: op name + input ordinal (-1 for count_star).
+    ``first`` and ``last`` take a group's first and last row, null or
+    not (Spark's first/last with ignoreNulls false); ``any_valid`` its
+    first valid value."""
 
     op: str
     ordinal: int = -1
@@ -69,26 +101,50 @@ def key_range_of(col: Column, dtype: dt.DType) -> Optional[Tuple[int, int]]:
 
 
 def agg_result_dtype(spec: AggSpec, dtypes: Sequence[dt.DType]) -> dt.DType:
+    if spec.op not in AGG_OPS:
+        raise NotImplementedError(f"aggregate op {spec.op!r} is not ported")
     if spec.op in ("count", "count_star"):
         return dt.INT64
+    in_t = dtypes[spec.ordinal]
     if spec.op == "sum":
-        in_t = dtypes[spec.ordinal]
         return dt.INT64 if in_t.is_integral or in_t is dt.BOOLEAN \
             else dt.FLOAT64
-    raise NotImplementedError(f"aggregate op {spec.op!r} is not ported")
+    return in_t  # min, max, first, last, any_valid keep the type
+
+
+def _agg_column(batch: ColumnarBatch, spec: AggSpec, rtype: dt.DType,
+                data, validity) -> Column:
+    """An aggregate's output column; a string input keeps its dictionary
+    (codes are in string order, so min/max/first/last of codes are those
+    of the strings)."""
+    if spec.ordinal >= 0 and rtype is dt.STRING:
+        return batch.columns[spec.ordinal]._like(data, validity)
+    return Column(rtype, data, validity)
 
 
 def groupby_aggregate(batch: ColumnarBatch, key_ordinals: List[int],
                       aggs: List[AggSpec], dtypes: List[dt.DType],
                       live_mask: Optional[torch.Tensor] = None
                       ) -> Tuple[ColumnarBatch, List[dt.DType]]:
-    """(batch of [keys..., aggregates...], their types)."""
+    """(batch of [keys..., aggregates...], their types), groups in key
+    order: on the dense path when ``_dense_layout`` allows it, else on
+    the sort path."""
+    for spec in aggs:
+        agg_result_dtype(spec, dtypes)
     cols = [(c.data, c.validity) for c in batch.columns]
     key_ranges = tuple(key_range_of(batch.columns[o], dtypes[o])
                        for o in key_ordinals)
-    (key_d, key_v), (agg_d, agg_v), num_groups = _groupby(
-        cols, tuple(dtypes), tuple(key_ordinals), tuple(aggs),
-        live_mask=live_mask, key_ranges=key_ranges)
+    key_has_v = tuple(batch.columns[o].validity is not None
+                      for o in key_ordinals)
+    layout = _dense_layout(dtypes, key_ordinals, key_ranges, key_has_v)
+    if layout is not None:
+        out = _dense_groupby(cols, dtypes, key_ordinals, aggs, live_mask,
+                             layout)
+    else:
+        out = _groupby(cols, tuple(dtypes), tuple(key_ordinals),
+                       tuple(aggs), live_mask=live_mask,
+                       key_ranges=key_ranges)
+    (key_d, key_v), (agg_d, agg_v), num_groups = out
     out_cols: List[Column] = []
     out_types: List[dt.DType] = []
     for i, o in enumerate(key_ordinals):
@@ -96,42 +152,77 @@ def groupby_aggregate(batch: ColumnarBatch, key_ordinals: List[int],
         out_types.append(dtypes[o])
     for i, spec in enumerate(aggs):
         rtype = agg_result_dtype(spec, dtypes)
-        out_cols.append(Column(rtype, agg_d[i], agg_v[i]))
+        out_cols.append(_agg_column(batch, spec, rtype, agg_d[i], agg_v[i]))
         out_types.append(rtype)
     return ColumnarBatch(out_cols, num_groups), out_types
+
+
+def _fills(in_t: dt.DType, kd: torch.dtype):
+    """(greatest, least) of a min/max input's lane type: the value a row
+    that does not take part holds (the reference's big and small)."""
+    if in_t.is_floating:
+        return float("inf"), float("-inf")
+    if in_t is dt.BOOLEAN:
+        return 1, 0
+    info = torch.iinfo(kd)
+    return info.max, info.min
 
 
 def reduce_aggregate(batch: ColumnarBatch, aggs: List[AggSpec],
                      dtypes: List[dt.DType], device
                      ) -> Tuple[ColumnarBatch, List[dt.DType]]:
     """Whole-batch reduction (no keys): a 1-row batch of the aggregates
-    (the reference's ``reduce_aggregate``). A sum over no valid rows is
-    null; the results stay on the device."""
+    (the reference's ``reduce_aggregate``). Every aggregate but a count
+    over no valid rows is null; the results stay on the device."""
     n = batch.num_rows
     out_cols: List[Column] = []
     out_types: List[dt.DType] = []
     for spec in aggs:
-        if spec.op not in AGG_OPS:
-            raise NotImplementedError(
-                f"aggregate op {spec.op!r} is not ported")
         rtype = agg_result_dtype(spec, dtypes)
         validity = None
         if spec.op == "count_star":
             data = torch.full((1,), n, dtype=torch.int64, device=device)
-        else:
-            c = batch.columns[spec.ordinal]
-            n_valid = torch.full((1,), n, dtype=torch.int64, device=device) \
-                if c.validity is None else \
-                c.validity.to(torch.int64).sum().reshape(1)
-            if spec.op == "count":
-                data = n_valid
+            out_cols.append(Column(rtype, data))
+            out_types.append(rtype)
+            continue
+        c = batch.columns[spec.ordinal]
+        d, v = c.data, c.validity
+        n_valid = torch.full((1,), n, dtype=torch.int64, device=device) \
+            if v is None else v.to(torch.int64).sum().reshape(1)
+        if spec.op == "count":
+            data = n_valid
+        elif n == 0:  # nothing to reduce: null
+            data = torch.zeros(1, dtype=rtype.torch_dtype, device=device)
+            validity = torch.zeros(1, dtype=torch.bool, device=device)
+        elif spec.op == "sum":
+            x = d.to(rtype.torch_dtype)
+            if v is not None:
+                x = torch.where(v, x, torch.zeros_like(x))
+            data = flush_subnormals(x.sum().reshape(1))
+            validity = n_valid > 0
+        elif spec.op in ("min", "max"):
+            dd = d.to(torch.int8) if rtype is dt.BOOLEAN else d
+            big, small = _fills(rtype, dd.dtype)
+            fill = big if spec.op == "min" else small
+            if v is not None:
+                dd = torch.where(v, dd, torch.full_like(dd, fill))
+            data = flush_subnormals(
+                (dd.amin() if spec.op == "min" else dd.amax()).reshape(1))
+            if rtype is dt.BOOLEAN:
+                data = data.to(torch.bool)
+            validity = n_valid > 0
+        else:  # first, last, any_valid: one row's value
+            if spec.op == "any_valid" and v is not None:
+                at = torch.argmax(v.to(torch.int8)).reshape(1)
             else:
-                x = c.data.to(rtype.torch_dtype)
-                if c.validity is not None:
-                    x = torch.where(c.validity, x, torch.zeros_like(x))
-                data = x.sum().reshape(1)
+                at = torch.full((1,), 0 if spec.op != "last" else n - 1,
+                                dtype=torch.int64, device=device)
+            data = d.index_select(0, at)
+            if spec.op == "any_valid":
                 validity = n_valid > 0
-        out_cols.append(Column(rtype, data, validity))
+            elif v is not None:
+                validity = v.index_select(0, at)
+        out_cols.append(_agg_column(batch, spec, rtype, data, validity))
         out_types.append(rtype)
     return ColumnarBatch(out_cols, 1), out_types
 
@@ -149,6 +240,197 @@ def _pack_plan(dtypes, key_ordinals, key_ranges):
                 (dt.DATE, dt.TIMESTAMP, dt.BOOLEAN, dt.STRING)):
             return None
     return key_ranges
+
+
+def _cards_strides(ranges, key_has_v):
+    """Per key: its slot count (a null takes slot 0 when it has nulls)
+    and its stride in the packed code; and the product of the counts."""
+    cards = [(hi - lo + 1) + (1 if hv else 0)
+             for (lo, hi), hv in zip(ranges, key_has_v)]
+    strides, stride = [], 1
+    for card in reversed(cards):
+        strides.append(stride)
+        stride *= max(card, 1)
+    strides.reverse()
+    return cards, strides, stride
+
+
+def _pack(cols, dtypes, key_ordinals, ranges, strides, lane_dt, n, dev):
+    """Every key's slot code, packed into one integer lane."""
+    pack = torch.zeros(n, dtype=lane_dt, device=dev)
+    for (lo, _hi), strd, o in zip(ranges, strides, key_ordinals):
+        d, v = cols[o]
+        dd = d.to(torch.int32) if dtypes[o] is dt.BOOLEAN else d
+        # subtract the base before narrowing: a small span at a large
+        # magnitude must not wrap
+        code = (dd - lo).to(lane_dt)
+        if v is not None:
+            code = torch.where(v, code + 1, torch.zeros_like(code))
+        pack = pack + code * strd
+    return pack
+
+
+def _decode_key(code, lo, has_v, dtype, wide):
+    """(data, validity) of one key from its slot code."""
+    if has_v:
+        kd, kv = (code - 1).to(wide) + lo, code > 0
+    else:
+        kd, kv = code.to(wide) + lo, None
+    if dtype is dt.BOOLEAN:
+        kd = kd.to(torch.bool)
+    return kd, kv
+
+
+# ---------------------------------------------------------------------------
+# dense path: a small host-known key space needs no sort
+# ---------------------------------------------------------------------------
+
+
+def _dense_layout(dtypes, key_ordinals, key_ranges, key_has_v):
+    """(ranges, cards, strides, slots) when every key packs and the packed
+    space has at most ``_DENSE_MAX_GROUPS`` slots, else None."""
+    ranges = _pack_plan(dtypes, key_ordinals, key_ranges)
+    if ranges is None:
+        return None
+    cards, strides, total = _cards_strides(ranges, key_has_v)
+    if total > _DENSE_MAX_GROUPS:
+        return None
+    return ranges, cards, strides, total
+
+
+def _sweep(codes: torch.Tensor, x: torch.Tensor, slots: int, op: str,
+           fill) -> torch.Tensor:
+    """Per slot s < ``slots``: ``op`` (sum, amin or amax) over x's rows
+    whose code is s, ``fill`` where none is. The masked [slots, rows]
+    broadcast of the reference, in chunks of rows."""
+    sl = torch.arange(slots, device=codes.device)[:, None]
+    step = max(_SWEEP_ELEMS // max(slots, 1), 1)
+    out = torch.full((slots,), fill, dtype=x.dtype, device=x.device)
+    for lo in range(0, codes.shape[0], step):
+        eq = codes[None, lo:lo + step] == sl
+        part = getattr(torch.where(eq, x[None, lo:lo + step],
+                                   torch.full((), fill, dtype=x.dtype,
+                                              device=x.device)),
+                       op)(dim=1)
+        out = out + part if op == "sum" else \
+            (torch.minimum if op == "amin" else torch.maximum)(out, part)
+    return out
+
+
+def _dense_groupby(cols, dtypes, key_ordinals, aggs, live_mask, layout):
+    """Sort-free group-by over at most ``_DENSE_MAX_GROUPS`` slots (the
+    reference's ``_dense_groupby``): the same null-first slot encoding
+    and validity rules as the sort path; groups come in slot order."""
+    ranges, cards, strides, total = layout
+    n = cols[key_ordinals[0]][0].shape[0]
+    dev = cols[key_ordinals[0]][0].device
+    codes = _pack(cols, dtypes, key_ordinals, ranges, strides, torch.int64,
+                  n, dev)
+    if live_mask is not None:  # a dead row counts in the spare slot
+        codes = torch.where(live_mask, codes, torch.full_like(codes, total))
+
+    def per_slot(idx, weights=None):
+        """Per slot but the spare one, per column of ``idx`` ([n, m]
+        codes): its rows' count, or the sum of ``weights`` ([n, m]) over
+        them; one histogram over slot * m + column for all columns."""
+        m = idx.shape[1]
+        flat = (idx * m + torch.arange(m, device=dev)).reshape(-1)
+        return torch.bincount(
+            flat, weights=None if weights is None else weights.reshape(-1),
+            minlength=(total + 1) * m).view(total + 1, m)[:total]
+
+    def contributing(o):
+        """Codes with the rows where input ``o`` is null in the spare
+        slot."""
+        v = cols[o][1]
+        return codes if v is None else \
+            torch.where(v, codes, torch.full_like(codes, total))
+
+    # every count in one histogram: the rows, then each nullable input's
+    # valid rows
+    nullable = list(dict.fromkeys(
+        s.ordinal for s in aggs if s.op != "count_star" and
+        cols[s.ordinal][1] is not None))
+    counts = per_slot(torch.stack([codes] + [contributing(o)
+                                             for o in nullable], 1))
+    sizes = counts[:, 0]
+    slots = torch.nonzero(sizes).squeeze(1)  # the groups, in slot order
+    num_groups = int(slots.shape[0])
+    iota = torch.arange(n, device=dev)
+
+    def nvalid(o):
+        return sizes if cols[o][1] is None else \
+            counts[:, 1 + nullable.index(o)]
+
+    # every float sum in one histogram
+    float_sums = [i for i, s in enumerate(aggs) if s.op == "sum" and
+                  dtypes[s.ordinal].is_floating]
+    sums = {}
+    if float_sums:
+        xs = []
+        for i in float_sums:
+            d, v = cols[aggs[i].ordinal]
+            x = d.to(torch.float64)
+            xs.append(x if v is None else torch.where(v, x,
+                                                      torch.zeros_like(x)))
+        totals = flush_subnormals(per_slot(
+            codes[:, None].expand(n, len(xs)), torch.stack(xs, 1))[slots])
+        sums = {i: totals[:, j] for j, i in enumerate(float_sums)}
+
+    agg_d, agg_v = [], []
+    for i, spec in enumerate(aggs):
+        if spec.op == "count_star":
+            agg_d.append(sizes[slots])
+            agg_v.append(None)
+            continue
+        o = spec.ordinal
+        d, v = cols[o]
+        if spec.op == "count":
+            agg_d.append(nvalid(o)[slots])
+            agg_v.append(None)
+            continue
+        valid = (nvalid(o) > 0)[slots]
+        if i in sums:
+            agg_d.append(sums[i])
+            agg_v.append(valid)
+        elif spec.op == "sum":
+            agg_d.append(_sweep(contributing(o), d.to(torch.int64),
+                                total + 1, "sum", 0)[slots])
+            agg_v.append(valid)
+        elif spec.op in ("min", "max"):
+            dd = d.to(torch.int8) if dtypes[o] is dt.BOOLEAN else d
+            fill = _fills(dtypes[o], dd.dtype)[spec.op == "max"]
+            vals = flush_subnormals(_sweep(
+                contributing(o), dd, total + 1,
+                "amin" if spec.op == "min" else "amax", fill)[slots])
+            if dtypes[o] is dt.BOOLEAN:
+                vals = vals.to(torch.bool)
+            agg_d.append(vals)
+            agg_v.append(valid)
+        else:  # first, last, any_valid: one row of each group
+            c = contributing(o) if spec.op == "any_valid" else codes
+            if spec.op == "last":
+                at = _sweep(c, iota, total + 1, "amax", -1)[slots]
+            else:
+                at = _sweep(c, iota, total + 1, "amin", n)[slots]
+            at = at.clamp(0, max(n - 1, 0))
+            agg_d.append(d[at])
+            agg_v.append(valid if spec.op == "any_valid" else
+                         None if v is None else v[at])
+    key_d, key_v = [], []
+    for ki, o in enumerate(key_ordinals):
+        wide = torch.int32 if dtypes[o] is dt.BOOLEAN else cols[o][0].dtype
+        code = (slots // strides[ki]) % max(cards[ki], 1)
+        kd, kv = _decode_key(code, ranges[ki][0], cols[o][1] is not None,
+                             dtypes[o], wide)
+        key_d.append(kd)
+        key_v.append(kv)
+    return (key_d, key_v), (agg_d, agg_v), num_groups
+
+
+# ---------------------------------------------------------------------------
+# sort path
+# ---------------------------------------------------------------------------
 
 
 def _equality_lanes(d: torch.Tensor, v: Optional[torch.Tensor],
@@ -176,23 +458,14 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
     """Returns ((key datas, key validities), (agg datas, agg
     validities), num_groups); every output has num_groups rows and
     groups come in key order."""
-    for spec in aggs:
-        if spec.op not in AGG_OPS:
-            raise NotImplementedError(
-                f"aggregate op {spec.op!r} is not ported")
     n = cols[key_ordinals[0]][0].shape[0]
     dev = cols[key_ordinals[0]][0].device
     key_has_v = tuple(cols[o][1] is not None for o in key_ordinals)
     ranges = _pack_plan(dtypes, key_ordinals, key_ranges)
 
     # ---- 1. sort ----------------------------------------------------------
-    lane_dt = None
     if ranges is not None:
-        cards = [(hi - lo + 1) + (1 if hv else 0)
-                 for (lo, hi), hv in zip(ranges, key_has_v)]
-        total = 1
-        for c in cards:
-            total *= max(c, 1)
+        cards, strides, total = _cards_strides(ranges, key_has_v)
         if total + 1 <= 0x7FFFFFFF:
             lane_dt = torch.int32
         elif total + 1 <= (1 << 62):
@@ -200,23 +473,8 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
         else:
             ranges = None
     if ranges is not None:
-        strides = []
-        stride = 1
-        for card in reversed(cards):
-            strides.append(stride)
-            stride *= max(card, 1)
-        strides.reverse()
-        pack = torch.zeros(n, dtype=lane_dt, device=dev)
-        for (lo, _hi), has_v, strd, o in zip(ranges, key_has_v, strides,
-                                             key_ordinals):
-            d, v = cols[o]
-            dd = d.to(torch.int32) if dtypes[o] is dt.BOOLEAN else d
-            # subtract the base before narrowing: a small span at a large
-            # magnitude must not wrap
-            code = (dd - lo).to(lane_dt)
-            if has_v:
-                code = torch.where(v, code + 1, torch.zeros_like(code))
-            pack = pack + code * strd
+        pack = _pack(cols, dtypes, key_ordinals, ranges, strides, lane_dt,
+                     n, dev)
         if live_mask is not None:
             pack = torch.where(live_mask, pack,
                                torch.full_like(pack, total))
@@ -255,7 +513,17 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
                                              dtype=starts.dtype,
                                              device=dev)])
     sizes = ends - starts
-    seg_id = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    lasts = ends - 1
+    longest = []
+
+    def seg_fold(x, op):
+        """``op`` over each group's sorted rows (a float64 sum through
+        the ``seg_sum`` kernel): one value per group."""
+        if not longest:
+            longest.append(int(sizes.max()) if num_groups else 0)
+        if op is torch.add:
+            return kgb.seg_sum(x, starts, sizes, longest[0])
+        return kgb.seg_fold(x, starts, sizes, longest[0], op)
 
     def seg_sum_exact(x: torch.Tensor) -> torch.Tensor:
         prefix = torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
@@ -274,46 +542,64 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
         return sizes if v is None else seg_sum_exact(v.to(torch.int64))
 
     # ---- 3. aggregates ----------------------------------------------------
-    agg_d, agg_v = [], []
-    for spec in aggs:
+    agg_d, agg_v = [None] * len(aggs), [None] * len(aggs)
+    float_sums = []
+    for i, spec in enumerate(aggs):
         if spec.op == "count_star":
-            agg_d.append(sizes.to(torch.int64))
-            agg_v.append(None)
+            agg_d[i] = sizes.to(torch.int64)
             continue
-        d, v = sorted_col(spec.ordinal)
+        o = spec.ordinal
+        d, v = sorted_col(o)
         if spec.op == "count":
-            agg_d.append(nvalid(spec.ordinal).to(torch.int64))
-            agg_v.append(None)
+            agg_d[i] = nvalid(o).to(torch.int64)
             continue
-        # sum
-        if dtypes[spec.ordinal].is_floating:
+        if spec.op in ("first", "last"):
+            at = starts if spec.op == "first" else lasts
+            agg_d[i] = d[at]
+            agg_v[i] = None if v is None else v[at]
+            continue
+        agg_v[i] = nvalid(o) > 0
+        if spec.op == "any_valid":
+            at = starts
+            if v is not None:  # each group's first valid row
+                seen = torch.cumsum(v.to(torch.int64), 0)
+                before = (seen - v.to(torch.int64))[starts]
+                at = torch.searchsorted(seen, before + 1).clamp(
+                    max=max(n_live - 1, 0))
+            agg_d[i] = flush_subnormals(d[at])
+        elif spec.op in ("min", "max"):
+            dd = d.to(torch.int8) if dtypes[o] is dt.BOOLEAN else d
+            fill = _fills(dtypes[o], dd.dtype)[spec.op == "max"]
+            if v is not None:
+                dd = torch.where(v, dd, torch.full_like(dd, fill))
+            vals = flush_subnormals(seg_fold(
+                dd, torch.minimum if spec.op == "min" else torch.maximum))
+            agg_d[i] = vals.to(torch.bool) if dtypes[o] is dt.BOOLEAN \
+                else vals
+        elif dtypes[o].is_floating:  # float sums: one scan for all
             x = d.to(torch.float64)
             if v is not None:
                 x = torch.where(v, x, torch.zeros_like(x))
-            s = torch.zeros(num_groups, dtype=torch.float64, device=dev)
-            s.index_add_(0, seg_id, x)
+            float_sums.append((i, x))
         else:
             x = d.to(torch.int64)
             if v is not None:
                 x = torch.where(v, x, torch.zeros_like(x))
-            s = seg_sum_exact(x)
-        agg_d.append(s)
-        agg_v.append(nvalid(spec.ordinal) > 0)
+            agg_d[i] = seg_sum_exact(x)
+    if float_sums:
+        sums = seg_fold(torch.stack([x for _, x in float_sums], dim=1),
+                        torch.add)
+        for j, (i, _) in enumerate(float_sums):
+            agg_d[i] = flush_subnormals(sums[:, j])
 
     # ---- keys -------------------------------------------------------------
     key_d, key_v = [], []
     for ki, o in enumerate(key_ordinals):
         wide = torch.int32 if dtypes[o] is dt.BOOLEAN else cols[o][0].dtype
         if ranges is not None:
-            sp = lanes[0][starts]
-            code = (sp // strides[ki]) % max(cards[ki], 1)
-            lo = ranges[ki][0]
-            if key_has_v[ki]:
-                kv = code > 0
-                kd = (code - 1).to(wide) + lo
-            else:
-                kv = None
-                kd = code.to(wide) + lo
+            code = (lanes[0][starts] // strides[ki]) % max(cards[ki], 1)
+            kd, kv = _decode_key(code, ranges[ki][0], key_has_v[ki],
+                                 dtypes[o], wide)
         else:
             at = key_lane_at[ki]
             if dtypes[o].is_floating:
@@ -323,8 +609,8 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
             else:
                 kd = lanes[at][starts]
             kv = sorted_col(o)[1][starts] if key_has_v[ki] else None
-        if dtypes[o] is dt.BOOLEAN:
-            kd = kd.to(torch.bool)
+            if dtypes[o] is dt.BOOLEAN:
+                kd = kd.to(torch.bool)
         key_d.append(kd)
         key_v.append(kv)
     return (key_d, key_v), (agg_d, agg_v), num_groups

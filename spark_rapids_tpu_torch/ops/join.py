@@ -1,17 +1,24 @@
-"""Inner and left-anti equi-joins: hash-sorted build, bucket probe, exact
-verification (the counterpart of spark_rapids_tpu/ops/join.py).
+"""Equi-joins: hash-sorted build, bucket probe, exact verification (the
+counterpart of spark_rapids_tpu/ops/join.py).
 
   build:  h_b = hash64(keys); sort build rows by h_b; bucket table
   probe:  h_p = hash64(keys); (lo, counts) per probe row  (kernel K3)
   expand: pair k -> (probe row, build row lo + offset within the run)
   verify: exact key equality per pair kills hash collisions
   emit:   matched pairs compacted in order              (kernel K1)
-          (left anti: the stream rows with no matched pair, in order)
+
+The kinds are the reference's: ``inner``; ``leftsemi`` and ``leftanti``
+(the stream rows with, or without, a matched pair, stream columns
+only); ``left`` (the inner pairs, then the unmatched stream rows with an
+all-null build side); ``full`` (those, then the unmatched build rows
+with an all-null stream side). Every compaction goes through the
+partition kernel. A right join is a flipped left join, planned so by
+``plan/overrides``.
 
 Null keys never match: build and probe nulls take disjoint sentinel
-hashes, and exact verification rejects a null key, so a left anti join
-keeps the stream rows with a null key. The build side is prepared once
-and probed by every stream batch. Other join kinds raise.
+hashes, and exact verification rejects a null key, so a left, anti or
+full join keeps the rows with a null key unmatched. The build side is
+prepared once and probed by every stream batch.
 """
 from __future__ import annotations
 
@@ -25,9 +32,10 @@ from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
 from spark_rapids_tpu_torch.kernels import join as kjoin
 from spark_rapids_tpu_torch.kernels import sort as ksort
 from spark_rapids_tpu_torch.ops import hashing, sortkeys
+from spark_rapids_tpu_torch.ops.concat import concat_batches
 from spark_rapids_tpu_torch.ops.filter import compact_batch
 
-JOIN_TYPES = ("inner", "leftanti")
+JOIN_TYPES = ("inner", "left", "leftsemi", "leftanti", "full")
 
 _BUILD_NULL = -0x6789ABCDEF01
 _PROBE_NULL = 0x13579BDF2468
@@ -135,21 +143,50 @@ def _expand_verify(lo, counts, total: int, key_pairs, key_types):
 def _emit(stream: ColumnarBatch, build: ColumnarBatch, stream_types,
           build_types, pi, bi, match, join_type: str
           ) -> Tuple[ColumnarBatch, List]:
-    """Inner: matched pairs compacted in pair order (the partition
-    kernel), then stream columns gathered by probe row and build columns
-    by build row. Left anti: the stream rows that no pair matched."""
-    if join_type == "leftanti":
-        matched = torch.zeros(stream.num_rows, dtype=torch.bool,
-                              device=match.device)
-        matched[pi[match]] = True
-        return compact_batch(stream, ~matched), list(stream_types)
+    """Inner pairs compacted in pair order (the partition kernel), stream
+    columns gathered by probe row and build columns by build row; then,
+    by kind, the unmatched rows (the reference's ``_emit``)."""
+    if join_type in ("leftsemi", "leftanti"):
+        matched = _matched(stream.num_rows, pi, match)
+        keep = matched if join_type == "leftsemi" else ~matched
+        return compact_batch(stream, keep), list(stream_types)
     order, n_match = ksort.partition_order_count(match)
     sel = order[:n_match]
     pi_s, bi_s = pi[sel], bi[sel]
     cols = [c.gather(pi_s) for c in stream.columns] + \
         [c.gather(bi_s) for c in build.columns]
-    return ColumnarBatch(cols, n_match), \
-        list(stream_types) + list(build_types)
+    out_types = list(stream_types) + list(build_types)
+    inner = ColumnarBatch(cols, n_match)
+    if join_type == "inner":
+        return inner, out_types
+    # left and full: the stream rows no pair matched, build side null
+    un_stream = compact_batch(stream, ~_matched(stream.num_rows, pi, match))
+    pieces = [inner, ColumnarBatch(
+        list(un_stream.columns) +
+        [_all_null(c, un_stream.num_rows) for c in build.columns],
+        un_stream.num_rows)]
+    if join_type == "full":
+        un_build = compact_batch(build, ~_matched(build.num_rows, bi, match))
+        pieces.append(ColumnarBatch(
+            [_all_null(c, un_build.num_rows) for c in stream.columns] +
+            list(un_build.columns), un_build.num_rows))
+    return concat_batches(pieces), out_types
+
+
+def _matched(n: int, rows, match) -> torch.Tensor:
+    """Per row of one side (``n`` rows; ``rows`` is each pair's row of
+    it): whether a matched pair has it (the reference's
+    ``_probe_matched`` and ``_build_matched``)."""
+    matched = torch.zeros(n, dtype=torch.bool, device=match.device)
+    matched[rows[match]] = True
+    return matched
+
+
+def _all_null(like: Column, n: int) -> Column:
+    """``n`` null rows of ``like``'s type (and dictionary)."""
+    dev = like.data.device
+    return like._like(torch.zeros(n, dtype=like.data.dtype, device=dev),
+                      torch.zeros(n, dtype=torch.bool, device=dev))
 
 
 def equi_join(stream: ColumnarBatch, build: ColumnarBatch,
@@ -158,10 +195,12 @@ def equi_join(stream: ColumnarBatch, build: ColumnarBatch,
               join_type: str = "inner",
               prepared: Optional[PreparedBuild] = None
               ) -> Tuple[ColumnarBatch, List[dt.DType]]:
-    """Join ``stream`` (probe side) against ``build``. Inner output:
-    stream columns then build columns, pairs in probe-row order and,
-    within a probe row, in hash-sorted build order. Left anti output: the
-    unmatched stream rows, stream columns only."""
+    """Join ``stream`` (probe side) against ``build``. Output columns:
+    stream columns then build columns (semi and anti: stream columns
+    only). Inner pairs come in probe-row order and, within a probe row,
+    in hash-sorted build order; a left join appends the unmatched stream
+    rows, and a full join then the unmatched build rows in hash-sorted
+    order."""
     if join_type not in JOIN_TYPES:
         raise NotImplementedError(f"{join_type} join is not ported")
     commons = [common_key_type(stream_types[so], build_types[bo])

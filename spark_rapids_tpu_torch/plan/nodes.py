@@ -157,11 +157,17 @@ class LimitNode(PlanNode):
         return f"Limit[{self.n}]"
 
 
+#: the equi-join kinds (the reference's, but ``cross``)
+JOIN_KINDS = ("inner", "left", "right", "full", "left_semi", "left_anti")
+
+
 class JoinNode(PlanNode):
     """Equi-join on key ordinals plus an optional residual ``condition``
     over the joined row (left columns then right), applied as a filter
-    after the join, as the reference does. An inner join outputs left
-    columns then right; a ``left_anti`` join the left columns only."""
+    after the join, as the reference does. Inner, left, right and full
+    joins output left columns then right (the side an outer join pads
+    with nulls is nullable); ``left_semi`` and ``left_anti`` joins the
+    left columns only."""
 
     def __init__(self, kind: str, left: PlanNode, right: PlanNode,
                  left_keys: List[int], right_keys: List[int],
@@ -169,6 +175,8 @@ class JoinNode(PlanNode):
         super().__init__([left, right])
         if len(left_keys) != len(right_keys) or not left_keys:
             raise ValueError("an equi-join needs matching key lists")
+        if kind not in JOIN_KINDS:
+            raise NotImplementedError(f"{kind} join is not ported")
         self.kind = kind
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
@@ -176,7 +184,7 @@ class JoinNode(PlanNode):
 
     def output_schema(self) -> Schema:
         ls, rs = (c.output_schema() for c in self.children)
-        if self.kind == "left_anti":
+        if self.kind in ("left_semi", "left_anti"):
             return ls
         return Schema(ls.names + rs.names, ls.types + rs.types)
 

@@ -1,7 +1,7 @@
-"""Greedy join reordering (the counterpart of the join-order part of
-spark_rapids_tpu/plan/optimizer.py, which the reference's
-``apply_overrides`` runs by default, fusion and adaptive execution off
-included).
+"""Greedy join reordering and the distinct-aggregate rewrite (the
+counterpart of those parts of spark_rapids_tpu/plan/optimizer.py, which
+the reference's ``apply_overrides`` runs by default, fusion and adaptive
+execution off included, in this order).
 
 A maximal chain of condition-free inner equi-joins over three or more
 relations is rebuilt left-deep: it starts from the relation of most
@@ -13,9 +13,16 @@ child's rows for a filter, a third for an aggregate. The port's
 in-memory sources carry no footer statistics, so a join's estimate is
 the larger side's, as the reference's is for in-memory sources.
 
-Only the reorder is ported. The reference's ``optimize`` first runs
-``collapse_project`` and ``push_filters_below_joins`` twice and
-``collapse_project`` after the reorder; those passes are not ported, so
+``rewrite_distinct_aggregates`` turns ``count(DISTINCT x)`` and
+``sum(DISTINCT x)`` into a group-by on the keys and x (which drops the
+duplicates), then the plain aggregate over it; plain sums, counts,
+averages, minima and maxima beside it are computed per (keys, x) and
+merged, as the reference does. Distinct aggregates over more than one
+input are refused, where the reference falls back to its CPU engine.
+
+The reference's ``optimize`` also runs ``collapse_project`` and
+``push_filters_below_joins`` twice before the reorder and
+``collapse_project`` after it; those passes are not ported, so
 a plan whose filters sit above its joins can be estimated, and ordered,
 otherwise than there. The plans the port runs (TPC-H q3, TPC-DS q91 as
 ``plan_statement`` gives it) are held to the reference's order in
@@ -26,7 +33,13 @@ from __future__ import annotations
 import copy
 from typing import List, Optional
 
-from spark_rapids_tpu_torch.expressions.base import Alias, BoundReference
+from spark_rapids_tpu_torch.columnar import dtypes as dt
+from spark_rapids_tpu_torch.expressions import aggregates as aggfn
+from spark_rapids_tpu_torch.expressions.arithmetic import Divide
+from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
+                                                     Expression, Literal)
+from spark_rapids_tpu_torch.expressions.conditional import If
+from spark_rapids_tpu_torch.expressions.predicates import IsNotNull
 from spark_rapids_tpu_torch.plan import nodes as pn
 
 _FILTER_SELECTIVITY = 0.3
@@ -146,3 +159,109 @@ def reorder_joins(node: pn.PlanNode) -> pn.PlanNode:
             exprs.append(Alias(BoundReference(offsets[ri] + ci, t),
                                out.names[len(exprs)]))
     return pn.ProjectNode(exprs, cur, names=list(out.names))
+
+
+def rewrite_distinct_aggregates(node: pn.PlanNode, _memo=None
+                                ) -> pn.PlanNode:
+    """``node`` with every distinct count or sum rewritten to a dedup
+    group-by and a plain aggregate over it (bottom up; a subtree that
+    occurs twice is rewritten once)."""
+    if _memo is None:
+        _memo = {}
+    hit = _memo.get(id(node))
+    if hit is not None:
+        return hit[1]
+    out = _with_children(node, [rewrite_distinct_aggregates(c, _memo)
+                                for c in node.children])
+    out = _rewrite_distinct_one(out)
+    _memo[id(node)] = (node, out)
+    return out
+
+
+def _rewrite_distinct_one(node: pn.PlanNode) -> pn.PlanNode:
+    if not isinstance(node, pn.AggregateNode):
+        return node
+    dist = [a for a in node.aggs if a.fn.distinct]
+    plain = [a for a in node.aggs if not a.fn.distinct]
+    if not dist:
+        return node
+    decomposable = (aggfn.Count, aggfn.Sum, aggfn.Min, aggfn.Max,
+                    aggfn.Average)
+    if not all(type(a.fn) in (aggfn.Count, aggfn.Sum) and a.fn.children
+               for a in dist) or \
+            not all(type(a.fn) in decomposable for a in plain):
+        raise NotImplementedError(
+            "a distinct aggregate beside " + ", ".join(
+                type(a.fn).__name__ for a in node.aggs) +
+            " is not ported yet")
+    x_in = dist[0].fn.children[0]
+    if any(repr(a.fn.children[0]) != repr(x_in) for a in dist[1:]):
+        raise NotImplementedError(
+            "distinct aggregates over more than one input are not ported "
+            "yet")
+
+    nkeys = len(node.grouping)
+    inner_aggs, inner_ords = [], {}
+    for a in plain:
+        i0 = len(inner_aggs)
+        if isinstance(a.fn, aggfn.Average):
+            # avg is no avg of avgs: a sum and a count, divided at the end
+            inner_aggs += [pn.AggCall(aggfn.Sum(a.fn.children[0]), f"_p{i0}"),
+                           pn.AggCall(aggfn.Count(a.fn.children[0]),
+                                      f"_p{i0 + 1}")]
+            inner_ords[id(a)] = [i0, i0 + 1]
+        else:
+            inner_aggs.append(pn.AggCall(type(a.fn)(*a.fn.children),
+                                         f"_p{i0}"))
+            inner_ords[id(a)] = [i0]
+    inner = pn.AggregateNode(
+        list(node.grouping) + [x_in], inner_aggs, node.children[0],
+        grouping_names=list(node.grouping_names) + ["__distinct"])
+    x = BoundReference(nkeys, x_in.dtype)
+    outer_aggs, out_spec = [], []  # ("ref", j) | ("coalesce0", j) | div
+
+    def partial(o):
+        return BoundReference(nkeys + 1 + o, inner_aggs[o].fn.dtype)
+
+    for a in node.aggs:
+        if a.fn.distinct:
+            out_spec.append(("ref", len(outer_aggs)))
+            outer_aggs.append(pn.AggCall(type(a.fn)(x), a.name))
+            continue
+        ords = inner_ords[id(a)]
+        if isinstance(a.fn, aggfn.Average):
+            out_spec.append(("div", len(outer_aggs), len(outer_aggs) + 1))
+            outer_aggs += [pn.AggCall(aggfn.Sum(partial(o)),
+                                      f"{a.name}_{o}") for o in ords]
+            continue
+        merge = aggfn.Sum if isinstance(a.fn, (aggfn.Count, aggfn.Sum)) \
+            else type(a.fn)
+        # an ungrouped count merges through a sum, null over no rows
+        kind = "coalesce0" if not node.grouping and \
+            isinstance(a.fn, aggfn.Count) else "ref"
+        out_spec.append((kind, len(outer_aggs)))
+        outer_aggs.append(pn.AggCall(merge(partial(ords[0])), a.name))
+    out = pn.AggregateNode(
+        [BoundReference(i, e.dtype) for i, e in enumerate(node.grouping)],
+        outer_aggs, inner, grouping_names=list(node.grouping_names))
+    if all(spec[0] == "ref" for spec in out_spec):
+        return out
+    schema = out.output_schema()
+
+    def col(j) -> Expression:
+        return BoundReference(nkeys + j, schema.types[nkeys + j])
+
+    exprs = [Alias(BoundReference(i, schema.types[i]), schema.names[i])
+             for i in range(nkeys)]
+    for spec, a in zip(out_spec, node.aggs):
+        if spec[0] == "ref":
+            e = col(spec[1])
+        elif spec[0] == "coalesce0":
+            e = If(IsNotNull(col(spec[1])), col(spec[1]),
+                   Literal(0, dt.INT64))
+        else:
+            e = Divide(col(spec[1]), col(spec[2]))
+        exprs.append(Alias(e, a.name))
+    return pn.ProjectNode(exprs, out,
+                          names=list(node.grouping_names) +
+                          [a.name for a in node.aggs])

@@ -3,7 +3,9 @@ spark_rapids_tpu/plan/overrides.py with fusion and adaptive execution
 off). Each ported node type converts to its exec; any other node raises.
 First, as the reference's default optimizer does, each chain of three
 or more inner joins is put in its greedy order (``plan/optimizer``), so
-the build sides are the ones the reference builds. Every expression
+the build sides are the ones the reference builds, and then distinct
+aggregates are rewritten to a dedup group-by. A right join becomes a
+left join that streams the right side, as the reference plans it. Every expression
 passes through ``expressions.folding.fold`` on its way, so each exec
 computes what the reference's XLA backend computes. Tagging and CPU
 fallback are not ported.
@@ -13,16 +15,18 @@ from __future__ import annotations
 from typing import Optional
 
 from spark_rapids_tpu_torch import DEFAULT_DEVICE
+from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.execs.aggregate import HashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TorchExec
 from spark_rapids_tpu_torch.execs.basic import (FilterExec, LimitExec,
                                                 ProjectExec, ScanExec)
-from spark_rapids_tpu_torch.execs.joins import (KIND_MAP,
-                                                BroadcastHashJoinExec)
+from spark_rapids_tpu_torch.execs.joins import BroadcastHashJoinExec
 from spark_rapids_tpu_torch.execs.sort import SortExec
+from spark_rapids_tpu_torch.expressions.base import Alias, BoundReference
 from spark_rapids_tpu_torch.expressions.folding import fold
 from spark_rapids_tpu_torch.plan import nodes as pn
-from spark_rapids_tpu_torch.plan.optimizer import reorder_joins
+from spark_rapids_tpu_torch.plan.optimizer import (
+    reorder_joins, rewrite_distinct_aggregates)
 
 #: rows per uploaded scan batch (the reference's
 #: rapids.tpu.sql.reader.batchSizeRows, same key and default)
@@ -37,7 +41,8 @@ def apply_overrides(plan: pn.PlanNode, conf: Optional[dict] = None,
     unknown = set(conf) - set(_DEFAULTS)
     if unknown:
         raise ValueError(f"unknown conf keys: {sorted(unknown)}")
-    return _convert(reorder_joins(plan), conf, device)
+    return _convert(rewrite_distinct_aggregates(reorder_joins(plan)), conf,
+                    device)
 
 
 def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
@@ -60,10 +65,31 @@ def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
     if isinstance(node, pn.LimitNode):
         return LimitExec(node.n, kids[0], device)
     if isinstance(node, pn.JoinNode):
-        if node.kind not in KIND_MAP:
-            raise NotImplementedError(f"{node.kind} join is not ported")
         cond = None if node.condition is None else fold(node.condition)
+        if node.kind == "right":
+            return _flipped_right_join(node, kids, schema, cond, device)
         return BroadcastHashJoinExec(node.kind, kids[0], kids[1],
                                      node.left_keys, node.right_keys,
                                      schema, device, cond)
     raise NotImplementedError(f"{node.describe()} is not ported")
+
+
+def _flipped_right_join(node: pn.JoinNode, kids, schema, cond, device
+                        ) -> TorchExec:
+    """A right join as the reference plans it: a left join that streams
+    the right side and builds the left, then a projection back to left
+    columns then right."""
+    left, right = kids
+    if cond is not None:
+        raise NotImplementedError(
+            "a right join with a residual condition is not ported")
+    nl, nr = len(left.schema.types), len(right.schema.types)
+    flipped = BroadcastHashJoinExec(
+        "left", right, left, node.right_keys, node.left_keys,
+        Schema(right.schema.names + left.schema.names,
+               right.schema.types + left.schema.types), device)
+    exprs = [Alias(BoundReference(nr + i, t), n) for i, (t, n) in
+             enumerate(zip(left.schema.types, schema.names[:nl]))] + \
+        [Alias(BoundReference(i, t), n) for i, (t, n) in
+         enumerate(zip(right.schema.types, schema.names[nl:]))]
+    return ProjectExec(exprs, flipped, schema, device)

@@ -15,9 +15,13 @@ Whatever would build an expression or a node the port lacks raises
 ``SqlError`` naming it ("... is not ported yet"): window functions, set
 operations, ROLLUP, IN / EXISTS / scalar subqueries, CASE, non-literal
 casts and unary minus, the datetime, math and other scalar functions,
-aggregates other than sum, count and avg, DISTINCT aggregates, and the
-join kinds other than inner and left anti. None of them is planned
-differently from the reference.
+aggregates other than sum, count, avg, min and max, DISTINCT aggregates
+the optimizer's rewrite refuses (other than count and sum, or over more
+than one column), cross joins, and left, right and full joins with a
+non-equi condition (which the reference runs on its CPU engine).
+None of them is planned differently from the reference; a right join is
+a ``JoinNode("right")``, which ``plan/overrides`` runs as a flipped left
+join, as the reference's does.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Expression, Literal)
 from spark_rapids_tpu_torch.ops.sortkeys import SortKeySpec
 from spark_rapids_tpu_torch.plan import nodes as pn
+from spark_rapids_tpu_torch.plan.optimizer import rewrite_distinct_aggregates
 from spark_rapids_tpu_torch.sql.parser import SqlError
 
 _AGG_FNS = {"sum", "count", "avg", "min", "max", "first", "last",
@@ -66,7 +71,8 @@ _JOIN_KINDS = {"inner": "INNER JOIN", "left_anti": "LEFT ANTI JOIN",
                "left_semi": "LEFT SEMI JOIN", "left": "LEFT JOIN",
                "right": "RIGHT JOIN", "full": "FULL JOIN",
                "cross": "CROSS JOIN"}
-_PORTED_JOINS = ("inner", "left_anti")
+_PORTED_JOINS = ("inner", "left", "right", "full", "left_semi",
+                 "left_anti")
 
 
 def _not_ported(what: str) -> SqlError:
@@ -322,22 +328,21 @@ def _plan_agg_call(ast, scope: _Scope, env=None) -> A.AggregateFunction:
             if isinstance(arg, Literal) and arg.value is not None \
                     and not distinct:
                 return A.Count()  # count(1) == count(*)
-            if distinct:
-                raise _not_ported("count(DISTINCT ...)")
-            return A.Count(arg)
+            return A.Count(arg, distinct=distinct)
         if distinct:
             raise SqlError("count(DISTINCT *) is unsupported")
         return A.Count()
     if len(args) != 1:
         raise SqlError(f"{name}() takes one argument")
     arg = ep.plan(args[0])
-    if distinct:
-        raise _not_ported(f"{name}(DISTINCT ...)")
     if name == "sum":
-        return A.Sum(arg)
-    if name == "avg":
-        return A.Average(arg)
-    raise _not_ported(f"aggregate {name}()")
+        return A.Sum(arg, distinct=distinct)
+    if distinct:
+        raise SqlError(f"{name}(DISTINCT) is unsupported")
+    ported = {"avg": A.Average, "min": A.Min, "max": A.Max}
+    if name not in ported:
+        raise _not_ported(f"aggregate {name}()")
+    return ported[name](arg)
 
 
 def _collect_agg_calls(ast, out: List):
@@ -448,20 +453,29 @@ def _plan_relation(rel, catalog) -> Tuple[pn.PlanNode, _Scope]:
             raise SqlError("join requires at least one equi-condition "
                            "(col = col across the two sides)")
         cond_expr = None
-        joined_scope = _Scope(lscope.entries + rscope.entries
-                              if jkind == "inner" else lscope.entries)
+        joined_scope = _Scope(
+            lscope.entries + rscope.entries
+            if jkind not in ("left_semi", "left_anti") else lscope.entries)
         if residual is not None:
-            if jkind == "left_anti":
-                # one-sided ON conjuncts of the right side become a
-                # pre-join filter (an anti join KEEPS left rows whose ON
-                # condition is false, so left-side ones cannot move)
+            if jkind in ("left_semi", "left_anti"):
+                # one-sided ON conjuncts become pre-join filters (an anti
+                # join KEEPS left rows whose ON condition is false, so
+                # left-side ones move only below a semi join)
                 for c in _conjuncts(residual):
-                    if _conjunct_side(c, lscope, rscope) != "r":
+                    side = _conjunct_side(c, lscope, rscope)
+                    if side == "r":
+                        rnode = pn.FilterNode(
+                            _ExprPlanner(rscope).plan(c), rnode)
+                    elif side == "l" and jkind == "left_semi":
+                        lnode = pn.FilterNode(
+                            _ExprPlanner(lscope).plan(c), lnode)
+                    else:
                         raise SqlError(
                             "semi/anti joins support only equi or "
                             "single-side conditions")
-                    rnode = pn.FilterNode(
-                        _ExprPlanner(rscope).plan(c), rnode)
+            elif jkind != "inner":
+                raise _not_ported(f"{_JOIN_KINDS[jkind]} with a non-equi "
+                                  "condition")
             else:
                 full_scope = _Scope(lscope.entries + rscope.entries)
                 cond_expr = _ExprPlanner(full_scope).plan(residual)
@@ -702,6 +716,10 @@ def plan_statement(ast, catalog) -> pn.PlanNode:
                   for i, g in enumerate(q["group"])]
         node = pn.AggregateNode(grouping, calls, node,
                                 grouping_names=gnames)
+        try:  # a distinct aggregate the optimizer cannot rewrite
+            rewrite_distinct_aggregates(node)
+        except NotImplementedError as e:
+            raise SqlError(str(e)) from e
         # post-agg namespace: group ASTs then agg-call ASTs
         for i, g in enumerate(q["group"]):
             env[repr(g)] = (i, grouping[i].dtype)

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from spark_rapids_tpu_torch import kernels as nk  # noqa: E402
+from spark_rapids_tpu_torch.kernels import groupby as kgb  # noqa: E402
 from spark_rapids_tpu_torch.kernels import join as kjoin  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as ksort  # noqa: E402
 from spark_rapids_tpu_torch.kernels import strings as kstr  # noqa: E402
@@ -441,24 +442,23 @@ def test_session_sql_launches_like_table():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("query", ["q1", "q12"])
+@pytest.mark.parametrize("query", ["q1", "q12", "q13", "q21"])
 def test_tpch_host_string_query_card_equals_cpu(query):
-    """TPC-H q1 and q12 at sf 0.1 over ``HostStrings`` tables on the card
-    and on the CPU: strings and counts equal, float sums and averages
-    within 1e-9 relative; the partition kernel (and q12's probe) run."""
+    """TPC-H q1, q12, q13 and q21 at sf 0.1 over ``HostStrings`` tables on
+    the card and on the CPU: strings and counts equal, float sums and
+    averages within 1e-9 relative; the partition kernel runs, and the
+    probe in every query that joins."""
     from spark_rapids_tpu_torch.benchmarks import datagen, tpch
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
     dev = _card()
-    lineitem = datagen.gen_lineitem(0.1)
-    args = (lineitem,) if query == "q1" else \
-        (datagen.gen_orders(0.1), lineitem)
+    args = [datagen.GENERATORS[t](0.1) for t in tpch.INPUTS[query]]
     plan = getattr(tpch, query)
     nk.reset_launches()
     got = collect(apply_overrides(plan(*args), device=dev))
     assert nk.LAUNCHES["partition_order"] >= 1
-    if query == "q12":
+    if query != "q1":
         assert nk.LAUNCHES["probe"] >= 1
     want = collect(apply_overrides(plan(*args), device="cpu"))
     assert list(got) == list(want) and len(want[next(iter(want))]) > 0
@@ -467,3 +467,128 @@ def test_tpch_host_string_query_card_equals_cpu(query):
             np.testing.assert_allclose(got[name], w, rtol=1e-9, atol=0)
         else:
             assert list(got[name]) == list(w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", ["dense", "sort_few", "sort_many"])
+def test_groupby_float_sums_card_equals_cpu(keys):
+    """Float sums, min, max and counts on the card and on the CPU: six
+    string-keyed groups (the dense path: a histogram per block), a
+    handful of numeric keys over 1.5M rows and about 1M numeric keys
+    (the sort path: its sums through the ``seg_sum`` kernel); sums within
+    1e-9 relative (the card's histogram adds in another order), the rest
+    equal."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.ops import groupby as gb
+
+    dev = _card()
+    r = np.random.default_rng(13)
+    n = 1_500_000
+    if keys == "dense":
+        key = r.integers(0, 6, n).astype(np.int32)
+        kcol, ktype, dic = key, dt.STRING, np.array(
+            ["AF", "NF", "NO", "RF", "RO", "ZZ"], dtype=object)
+    else:
+        key = r.integers(0, 40 if keys == "sort_few" else 1_000_000, n)
+        kcol, ktype, dic = key.astype(np.int64), dt.INT64, None
+    x = r.standard_normal(n) * 1e3
+    x[r.integers(0, n, 50)] = np.nan
+    valid = r.random(n) > 0.05
+    datas, types = [kcol, x, x * 3.0], [ktype, dt.FLOAT64, dt.FLOAT64]
+    specs = [gb.AggSpec("sum", 1), gb.AggSpec("sum", 2),
+             gb.AggSpec("min", 1), gb.AggSpec("max", 2),
+             gb.AggSpec("count", 1), gb.AggSpec("count_star")]
+    out = []
+    for d in (dev, "cpu"):
+        b = batch_from_numpy(datas, types, [None, valid, None],
+                             [dic, None, None], device=d)
+        nk.reset_launches()
+        got, _ = gb.groupby_aggregate(b, [0], specs, types)
+        if d == dev:
+            assert nk.LAUNCHES["seg_sum"] == (keys != "dense")
+        out.append([(c.data.cpu().numpy(), None if c.validity is None
+                     else c.validity.cpu().numpy()) for c in got.columns])
+    for (gd, gv), (wd, wv) in zip(*out):
+        assert (gv is None) == (wv is None)
+        if gv is not None:
+            np.testing.assert_array_equal(gv, wv)
+        if gd.dtype.kind == "f":
+            np.testing.assert_allclose(gd, wd, rtol=1e-9, atol=0)
+        else:
+            np.testing.assert_array_equal(gd, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "one_row", "short", "long",
+                                  "columns"])
+def test_seg_sum_kernel_equals_plain(case):
+    """The ``seg_sum`` kernel on the card against its plain version on
+    the CPU, bit for bit (NaN where NaN): no groups; 100,003 one-row
+    groups; groups of one to eight rows (one level); groups up to 300,000
+    rows beside short ones (seven levels, spare pieces); three columns
+    over groups of one to 40 rows. Values span six decades, with an Inf
+    and a NaN."""
+    dev = _card()
+    r = np.random.default_rng(len(case))
+    sizes = {"empty": np.zeros(0, np.int64),
+             "one_row": np.ones(100_003, np.int64),
+             "short": r.integers(1, 9, 50_000),
+             "long": np.concatenate([r.integers(1, 9, 5000),
+                                     [300_000, 9, 64, 65, 513]]),
+             "columns": r.integers(1, 41, 20_000)}[case].astype(np.int64)
+    starts = np.r_[0, np.cumsum(sizes)[:-1]].astype(np.int64)[:len(sizes)]
+    n = int(sizes.sum())
+    x = r.standard_normal((n, 3) if case == "columns" else n) * \
+        10.0 ** r.integers(-3, 4, (n, 3) if case == "columns" else n)
+    if n > 10:
+        x.reshape(n, -1)[[3, n - 2], 0] = [np.inf, np.nan]
+    longest = int(sizes.max()) if len(sizes) else 0
+    nk.reset_launches()
+    got = kgb.seg_sum(torch.from_numpy(x).to(dev),
+                      torch.from_numpy(starts).to(dev),
+                      torch.from_numpy(sizes).to(dev), longest).cpu()
+    assert nk.LAUNCHES["seg_sum"] == (1 if len(sizes) else 0)
+    want = kgb.seg_fold(torch.from_numpy(x), torch.from_numpy(starts),
+                        torch.from_numpy(sizes), longest, torch.add)
+    assert got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok].view(torch.int64), want[ok].view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["left", "leftsemi", "full"])
+def test_join_kinds_card_equal_cpu(kind):
+    """Left, left semi and full joins of a 2M-row stream with nulls and
+    repeated keys on the card and on the CPU: the same rows in the same
+    order; the probe and the partition kernel run."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.ops import join as oj
+
+    dev = _card()
+    r = np.random.default_rng(17)
+    n_s, n_b = 1 << 21, 300_000
+    sk = r.integers(0, 500_000, n_s).astype(np.int64)
+    bk = r.integers(100_000, 600_000, n_b).astype(np.int64)
+    sval, bval = r.random(n_s), r.integers(0, 9, n_b).astype(np.int32)
+    svalid = r.random(n_s) > 0.01
+    rows = []
+    for d in (dev, "cpu"):
+        s = batch_from_numpy([sk, sval], [dt.INT64, dt.FLOAT64],
+                             [svalid, None], device=d)
+        b = batch_from_numpy([bk, bval], [dt.INT64, dt.INT32], device=d)
+        nk.reset_launches()
+        got, _ = oj.equi_join(s, b, [0], [0], [dt.INT64, dt.FLOAT64],
+                              [dt.INT64, dt.INT32], kind)
+        if d == dev:
+            assert nk.LAUNCHES["probe"] >= 1
+            assert nk.LAUNCHES["partition_order"] >= 1
+        rows.append([(c.data.cpu().numpy(), None if c.validity is None
+                      else c.validity.cpu().numpy()) for c in got.columns])
+    for (gd, gv), (wd, wv) in zip(*rows):
+        np.testing.assert_array_equal(gd, wd)
+        assert (gv is None) == (wv is None)
+        if gv is not None:
+            np.testing.assert_array_equal(gv, wv)

@@ -129,6 +129,8 @@ _INTEGER_ZERO = {
     "d_times_int_zero": "d * (j - j)",
     "two_int_zeros": "d + (i - i) - (j * 0)",
     "sum_minus_itself_unfolded": "d + ((i + 1) - (i + 1))",
+    "neg_zero_minus_int_zero_plus_d": "-0.0 - (i * 0) + d",
+    "zero_plus_j_minus_j_plus_d": "0.0 + (j - j) + d",
 }
 
 # the same zeros in sum inputs, one grouped query
@@ -146,6 +148,10 @@ _QUERIES = {
         "SELECT i FROM t WHERE d - (i * 0) >= 0.0",
     "where_d_times_one_plus_j_minus_j":
         "SELECT i FROM t WHERE d * 1 + (j - j) <= 0.0",
+    "where_neg_zero_minus_int_zero_plus_d":
+        "SELECT i FROM t WHERE -0.0 - (i * 0) + d >= 0.0",
+    "where_zero_plus_j_minus_j_plus_d":
+        "SELECT i FROM t WHERE 0.0 + (j - j) + d <= 0.0",
     "where_int_times_zero": "SELECT f FROM n WHERE j * 0 = 0",
     "where_int_minus_itself": "SELECT f FROM n WHERE j - j < 1",
     "where_multiply_add": "SELECT i FROM t WHERE d * 0.3 + 0.1 > 0.5",

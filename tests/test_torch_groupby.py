@@ -1,0 +1,383 @@
+"""The port's group-by ops, dense path and distinct rewrite against the
+reference's.
+
+The same seeded numpy columns go through spark_rapids_tpu (JAX on the
+CPU) and spark_rapids_tpu_torch on the CPU: min, max, first, last,
+any_valid, count and sum over ints, floats with NaN, -0.0 and nulls, and
+strings, per group of a numeric key (the sort path), of a string key (the
+dense path) and of a string key past 128 slots (the packed sort path),
+with one group whose values are all null. Keys, counts, ints and strings
+exact, floats within 1e-9 relative. Then the grand reductions, the
+boundary between the two paths, and ``rewrite_distinct_aggregates``:
+the reference's plan shape and its results.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from spark_rapids_tpu.config import RapidsConf  # noqa: E402
+from spark_rapids_tpu.execs.base import collect as rcollect  # noqa: E402
+from spark_rapids_tpu.expressions import aggregates as RA  # noqa: E402
+from spark_rapids_tpu.expressions.base import (  # noqa: E402
+    BoundReference as RRef)
+from spark_rapids_tpu.ops import groupby as rgb  # noqa: E402
+from spark_rapids_tpu.plan import nodes as rpn  # noqa: E402
+from spark_rapids_tpu.plan.optimizer import (  # noqa: E402
+    rewrite_distinct_aggregates as rrewrite)
+from spark_rapids_tpu.plan.overrides import (  # noqa: E402
+    apply_overrides as rapply)
+
+from spark_rapids_tpu_torch.columnar import dtypes as tdt  # noqa: E402
+from spark_rapids_tpu_torch.execs.base import collect  # noqa: E402
+from spark_rapids_tpu_torch.expressions import aggregates as TA  # noqa: E402
+from spark_rapids_tpu_torch.expressions.base import (  # noqa: E402
+    BoundReference as TRef)
+from spark_rapids_tpu_torch.ops import groupby as tgb  # noqa: E402
+from spark_rapids_tpu_torch.plan import nodes as pn  # noqa: E402
+from spark_rapids_tpu_torch.plan.optimizer import (  # noqa: E402
+    rewrite_distinct_aggregates)
+from spark_rapids_tpu_torch.plan.overrides import (  # noqa: E402
+    apply_overrides)
+from tests.test_torch_ops import _port_batch, _reference_batch  # noqa: E402
+
+_TYPES = ["bigint", "string", "string", "bigint", "double", "string"]
+_VALUES = (3, 4, 5)  # the aggregated columns
+_OPS = ("min", "max", "first", "last", "any_valid", "count")
+
+
+def _columns(n=400, seed=11):
+    """A numeric key, a string key of 6 values and one of 300, then an
+    int, a float (NaN, -0.0, subnormal, infinities) and a string column,
+    each with nulls; every value of key group 3 (of the numeric key) and
+    of "k2" (of the small string key) is null."""
+    r = np.random.default_rng(seed)
+    key = r.integers(0, 12, n).astype(np.int64)
+    small = np.array([f"k{i}" for i in r.integers(0, 6, n)], dtype=object)
+    wide = np.array([f"w{i:03d}" for i in r.integers(0, 300, n)],
+                    dtype=object)
+    ints = r.integers(-10**12, 10**12, n).astype(np.int64)
+    floats = r.standard_normal(n) * 10.0 ** r.integers(-3, 3, n)
+    floats[r.integers(0, n, 12)] = np.nan
+    floats[r.integers(0, n, 12)] = -0.0
+    floats[:4] = [np.inf, -np.inf, 1e-310, -0.0]
+    words = np.array([f"v{i}" for i in r.integers(0, 50, n)], dtype=object)
+    dead = (key == 3) | (small == "k2")
+    valids = [r.random(n) > 0.1, None, None] + \
+        [(r.random(n) > 0.2) & ~dead for _ in range(3)]
+    words[~valids[5]] = None  # a string's null is None in its data
+    valids[5] = None
+    return [key, small, wide, ints, floats, words], valids
+
+
+def _decode(col, n):
+    """(values, validity) of a column's first ``n`` rows, strings
+    decoded."""
+    data = np.array(jax.device_get(col.data))[:n] if not \
+        isinstance(col.data, torch.Tensor) else col.data.numpy()[:n]
+    v = col.validity
+    valid = np.ones(n, bool) if v is None else (
+        v.numpy()[:n] if isinstance(v, torch.Tensor)
+        else np.array(jax.device_get(v))[:n])
+    dic = getattr(col, "dictionary", None)
+    if dic is not None:
+        dic = np.asarray(dic, dtype=object)
+        data = np.array([dic[c] if ok else None
+                         for c, ok in zip(data, valid)], dtype=object)
+    return data, valid
+
+
+def _assert_columns_equal(got, want, n, words=None):
+    """``words``: the dictionary of the string input, for a reference
+    column that lost it (its grand reductions return bare codes)."""
+    for i, (gc, wc) in enumerate(zip(got.columns, want.columns)):
+        gd, gv = _decode(gc, n)
+        wd, wv = _decode(wc, n)
+        if gd.dtype == object and wd.dtype != object:
+            wd = np.array([words[c] if ok else None
+                           for c, ok in zip(wd, wv)], dtype=object)
+        np.testing.assert_array_equal(gv, wv, err_msg=f"column {i}")
+        if gd.dtype.kind == "f":
+            np.testing.assert_allclose(gd[gv], wd[wv], rtol=1e-9, atol=0)
+        else:
+            assert list(gd[gv]) == list(wd[wv])
+
+
+def _specs(mod, ops=_OPS):
+    specs = [mod.AggSpec(op, o) for o in _VALUES for op in ops]
+    specs += [mod.AggSpec("sum", 3), mod.AggSpec("sum", 4),
+              mod.AggSpec("count_star")]
+    return specs
+
+
+@pytest.mark.parametrize("key", [0, 1, 2],
+                         ids=["int_key_sort", "string_key_dense",
+                              "string_key_300_slots"])
+def test_groupby_ops_match_reference(key):
+    datas, valids = _columns()
+    n = len(datas[0])
+    rb, rtypes = _reference_batch(datas, _TYPES, valids, n)
+    want, _ = rgb.groupby_aggregate(rb, [key], _specs(rgb), rtypes)
+    tb, ttypes = _port_batch(datas, _TYPES, valids)
+    got, _ = tgb.groupby_aggregate(tb, [key], _specs(tgb), ttypes)
+    ng = int(jax.device_get(want.num_rows_device()))
+    assert got.num_rows == ng
+    _assert_columns_equal(got, want, ng)
+    dense = tgb._dense_layout(ttypes, [key], (tgb.key_range_of(
+        tb.columns[key], ttypes[key]),), (tb.columns[key].validity
+                                          is not None,))
+    assert (dense is not None) == (key == 1)
+
+
+@pytest.mark.parametrize("n", [400, 0], ids=["rows", "empty"])
+def test_reduce_aggregate_new_ops_match_reference(n):
+    """Grand min, max, first and last against the reference's
+    ``reduce_aggregate``; any_valid against the first valid value, as
+    the reference's group-by and its CPU oracle take it (its whole-batch
+    reduction takes the first row's value even when that row is null)."""
+    datas, valids = _columns()
+    datas = [d[:n] for d in datas]
+    valids = [None if v is None else v[:n] for v in valids]
+    valids[3] = valids[3].copy()
+    if n:
+        valids[3][0] = False  # the first row's int is null
+    ops = ("min", "max", "first", "last")
+    rb, rtypes = _reference_batch(datas, _TYPES, valids, n)
+    want, _ = rgb.reduce_aggregate(rb, _specs(rgb, ops), rtypes)
+    tb, ttypes = _port_batch(datas, _TYPES, valids)
+    got, _ = tgb.reduce_aggregate(tb, _specs(tgb, ops), ttypes, "cpu")
+    assert got.num_rows == 1
+    _assert_columns_equal(got, want, 1, rb.columns[5].dictionary)
+    got, _ = tgb.reduce_aggregate(tb, [tgb.AggSpec("any_valid", o)
+                                       for o in _VALUES], ttypes, "cpu")
+    for o, col in zip(_VALUES, got.columns):
+        ok = np.ones(n, bool) if valids[o] is None else valids[o]
+        ok = ok & np.array([x is not None for x in datas[o]], dtype=bool)
+        data, valid = _decode(col, 1)
+        assert valid[0] == ok.any()
+        if ok.any():
+            assert data[0] == datas[o][np.argmax(ok)]
+
+
+@pytest.mark.parametrize("slots", [128, 129])
+def test_dense_and_sort_paths_agree_at_the_boundary(slots):
+    """A string key of 128 values packs into 128 slots (the dense path);
+    with nulls it needs 129 (the sort path). Both equal the reference,
+    and at both sizes the dense sweep and the sort give the same groups."""
+    r = np.random.default_rng(3)
+    n = 2000
+    key = np.array([f"g{i:03d}" for i in r.integers(0, 128, n)],
+                   dtype=object)
+    vals = r.standard_normal(n)
+    ints = r.integers(-100, 100, n).astype(np.int64)
+    if slots == 129:
+        key[r.random(n) < 0.05] = None  # a string's null is None
+    datas, types = [key, vals, ints], ["string", "double", "bigint"]
+    valids = [None, r.random(n) > 0.1, None]
+    specs = [("sum", 1), ("min", 1), ("max", 2), ("first", 1), ("last", 2),
+             ("count", 1), ("count_star", -1), ("sum", 2)]
+    rb, rtypes = _reference_batch(datas, types, valids, n)
+    want, _ = rgb.groupby_aggregate(rb, [0], [rgb.AggSpec(*s)
+                                              for s in specs], rtypes)
+    tb, ttypes = _port_batch(datas, types, valids)
+    tspecs = [tgb.AggSpec(*s) for s in specs]
+    got, _ = tgb.groupby_aggregate(tb, [0], tspecs, ttypes)
+    ng = int(jax.device_get(want.num_rows_device()))
+    _assert_columns_equal(got, want, ng)
+    cols = [(c.data, c.validity) for c in tb.columns]
+    ranges = (tgb.key_range_of(tb.columns[0], ttypes[0]),)
+    layout = tgb._dense_layout(ttypes, [0], ranges,
+                               (tb.columns[0].validity is not None,))
+    assert (layout is not None) == (slots == 128)
+    sort = tgb._groupby(cols, tuple(ttypes), (0,), tuple(tspecs),
+                        key_ranges=ranges)
+    if layout is not None:
+        dense = tgb._dense_groupby(cols, ttypes, [0], tspecs, None, layout)
+        assert dense[2] == sort[2] == ng
+        for part in (0, 1):
+            for a, b in zip(dense[part][0] + dense[part][1],
+                            sort[part][0] + sort[part][1]):
+                if a is None or b is None:
+                    assert a is None and b is None
+                elif a.is_floating_point():
+                    np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                               rtol=1e-9, atol=0)
+                else:
+                    assert torch.equal(a, b)
+
+
+# -- the sort path's segmented sum -------------------------------------------
+
+
+def _group_sizes(case, r):
+    """Group sizes by case: every group one row; one to eight rows (one
+    piece each); groups past 64 rows beside short ones (three levels of
+    pieces)."""
+    if case == "one_row":
+        return np.ones(3000, dtype=np.int64)
+    if case == "short":
+        return r.integers(1, 9, 2000).astype(np.int64)
+    return np.concatenate([r.integers(1, 9, 300), [600, 65, 1],
+                           r.integers(9, 200, 40)]).astype(np.int64)
+
+
+@pytest.mark.parametrize("case", ["one_row", "short", "long"])
+def test_seg_sum_matches_reference_seg_scan(case):
+    """``kernels.groupby.seg_sum`` (its plain version on the CPU) over two
+    columns against the reference's segmented scan at each group's last
+    row: positive values within 1e-12 relative (the two add in different
+    orders), and an Inf and a NaN stay in their groups."""
+    import jax.numpy as jnp
+
+    from spark_rapids_tpu_torch.kernels import groupby as kgb
+
+    r = np.random.default_rng(len(case))
+    sizes = _group_sizes(case, r)
+    starts = np.r_[0, np.cumsum(sizes)[:-1]]
+    n = int(sizes.sum())
+    x = r.random((n, 2)) * 10.0 ** r.integers(-3, 4, (n, 2))
+    x[starts[1], 0], x[starts[-1], 1] = np.inf, np.nan
+    boundary = np.zeros((n, 1), dtype=bool)
+    boundary[starts] = True
+    got = kgb.seg_sum(torch.from_numpy(x), torch.from_numpy(starts),
+                      torch.from_numpy(sizes), int(sizes.max())).numpy()
+    scan = jax.jit(lambda v, b: rgb._seg_scan(v, b, jnp.add))
+    want = np.asarray(scan(jnp.asarray(x), jnp.asarray(boundary)))
+    np.testing.assert_allclose(got, want[starts + sizes - 1], rtol=1e-12,
+                               atol=0)
+    assert np.isinf(got[1, 0]) and np.isnan(got[-1, 1])
+    assert np.isfinite(got[:, 0]).sum() == len(sizes) - 1
+    # a group of at most eight rows sums in row order
+    for g in np.flatnonzero(sizes <= 8)[:50]:
+        acc = x[starts[g], 0]
+        for i in range(starts[g] + 1, starts[g] + sizes[g]):
+            acc = acc + x[i, 0]
+        assert got[g, 0] == acc or g == 1
+
+
+# -- count(DISTINCT) ----------------------------------------------------------
+
+
+def _agg_plans(mod, ref, fns, grouped):
+    """One AggregateNode over (k, x, v) with ``fns`` as
+    (class name, input ordinal, distinct)."""
+    calls = []
+    for i, (name, o, distinct) in enumerate(fns):
+        cls = getattr(mod, name)
+        args = [] if o is None else [ref(o, _DIST_T[o])]
+        fn = cls(*args, distinct=distinct) if name in ("Count", "Sum") \
+            else cls(*args)
+        calls.append((fn, f"a{i}"))
+    return calls
+
+
+def _shape(node):
+    """The plan as (node type, grouping count, [(fn, distinct)...])
+    nested."""
+    aggs = getattr(node, "aggs", [])
+    return (type(node).__name__, len(getattr(node, "grouping", [])),
+            [(type(a.fn).__name__, bool(getattr(a.fn, "distinct", False)))
+             for a in aggs], [_shape(c) for c in node.children])
+
+
+_DIST_T = {}
+_DISTINCT_CASES = {
+    "with_plain": ([("Count", 1, True), ("Sum", 2, False), ("Count", None,
+                                                            False),
+                    ("Average", 2, False), ("Min", 2, False),
+                    ("Max", 1, False), ("Sum", 1, True)], True),
+    "ungrouped": ([("Count", 1, True), ("Count", 2, False),
+                   ("Sum", 2, False)], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DISTINCT_CASES))
+def test_rewrite_distinct_aggregates_matches_reference(case):
+    from spark_rapids_tpu.columnar import dtypes as rdt
+
+    fns, grouped = _DISTINCT_CASES[case]
+    r = np.random.default_rng(9)
+    n = 300
+    cols = {"k": r.integers(0, 7, n).astype(np.int64),
+            "x": r.integers(0, 20, n).astype(np.int64),
+            "v": np.round(r.random(n) * 100, 2)}
+    valid = {"x": r.random(n) > 0.1, "v": r.random(n) > 0.2}
+    plans = []
+    for mod, nodes, ref, dtm in ((RA, rpn, RRef, rdt), (TA, pn, TRef, tdt)):
+        _DIST_T.update({0: dtm.INT64, 1: dtm.INT64, 2: dtm.FLOAT64})
+        scan = nodes.ScanNode(nodes.InMemorySource(dict(cols),
+                                                   validity=valid))
+        calls = [nodes.AggCall(fn, name)
+                 for fn, name in _agg_plans(mod, ref, fns, grouped)]
+        plans.append(nodes.AggregateNode(
+            [ref(0, dtm.INT64)] if grouped else [], calls, scan,
+            grouping_names=["k"] if grouped else None))
+    rplan, tplan = plans
+    assert _shape(rewrite_distinct_aggregates(tplan)) == \
+        _shape(rrewrite(rplan))
+    want = rcollect(rapply(rplan, RapidsConf()))
+    got = collect(apply_overrides(
+        tplan, {"rapids.tpu.sql.reader.batchSizeRows": 64}, device="cpu"))
+    assert list(got) == list(want.columns)
+    order = np.argsort(got["k"], kind="stable") if grouped else [0]
+    worder = np.argsort(want["k"].to_numpy(), kind="stable") \
+        if grouped else [0]
+    for name in want.columns:
+        w = want[name].to_numpy()[worder]
+        g = np.asarray(got[name])[order]
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g.astype(np.float64), w, rtol=1e-9)
+        else:
+            assert list(g) == list(w), name
+
+
+def test_multi_distinct_is_refused():
+    scan = pn.ScanNode(pn.InMemorySource({
+        "k": np.arange(4, dtype=np.int64), "x": np.arange(4, dtype=np.int64),
+        "y": np.arange(4, dtype=np.int64)}))
+    node = pn.AggregateNode(
+        [], [pn.AggCall(TA.Count(TRef(1, tdt.INT64), distinct=True), "a"),
+             pn.AggCall(TA.Count(TRef(2, tdt.INT64), distinct=True), "b")],
+        scan)
+    with pytest.raises(NotImplementedError, match="more than one input"):
+        apply_overrides(node, device="cpu")
+
+
+def test_first_last_min_max_aggregates_match_reference_engine():
+    """``First`` (with and without ignoring nulls), ``Last``, ``Min`` and
+    ``Max`` through the aggregate exec, the port in 64-row batches (each
+    merge keeps the running partial's first and the new part's last),
+    against the reference engine in one."""
+    from spark_rapids_tpu.columnar import dtypes as rdt
+
+    r = np.random.default_rng(4)
+    n = 500
+    cols = {"k": r.integers(0, 9, n).astype(np.int64),
+            "x": np.round(r.standard_normal(n) * 100, 2)}
+    valid = {"x": r.random(n) > 0.3}
+    outs = []
+    for mod, nodes, ref, dtm, conf, run in (
+            (RA, rpn, RRef, rdt, RapidsConf(),
+             lambda p, c: rcollect(rapply(p, c))),
+            (TA, pn, TRef, tdt, {"rapids.tpu.sql.reader.batchSizeRows": 64},
+             lambda p, c: collect(apply_overrides(p, c, device="cpu")))):
+        x = ref(1, dtm.FLOAT64)
+        calls = [nodes.AggCall(fn, name) for fn, name in (
+            (mod.First(x), "f"), (mod.First(x, ignore_nulls=True), "fv"),
+            (mod.Last(x), "l"), (mod.Min(x), "lo"), (mod.Max(x), "hi"))]
+        plan = nodes.AggregateNode([ref(0, dtm.INT64)], calls, nodes.ScanNode(
+            nodes.InMemorySource(dict(cols), validity=valid)),
+            grouping_names=["k"])
+        outs.append(run(plan, conf))
+    want, got = outs
+    order = np.argsort(want["k"].to_numpy(), kind="stable")
+    assert list(got["k"]) == list(want["k"].to_numpy()[order])
+    for name in ("f", "fv", "l", "lo", "hi"):
+        w, g = (np.array([np.nan if v is None else v for v in c],
+                         dtype=np.float64)
+                for c in (want[name].to_numpy()[order], got[name]))
+        np.testing.assert_array_equal(g, w, err_msg=name)

@@ -231,6 +231,20 @@ _SHAPES = {
             "SELECT k, sv FROM a WHERE sv > 1000.0 ORDER BY k", True),
     "order_by_hidden": ("SELECT s FROM t WHERE k < 3 ORDER BY v DESC, k, s "
                         "LIMIT 9", True),
+    # the joins and aggregates of the tenth slice; u's k2 misses some of
+    # t's keys and holds keys t lacks, and t's v has nulls
+    "left_join_distinct_min_max": (
+        "SELECT t.s, count(f.w) AS n, count(DISTINCT f.w) AS nd, "
+        "sum(t.v) AS sv, min(t.v) AS lo, max(f.w) AS hi, min(t.s) AS ms "
+        "FROM t LEFT OUTER JOIN (SELECT k2, w FROM u WHERE w > 25) f "
+        "ON t.k = f.k2 GROUP BY t.s ORDER BY t.s", True),
+    "right_join": ("SELECT f.v, u.k2, u.w FROM (SELECT k, v FROM t WHERE "
+                   "k < 6) f RIGHT JOIN u ON f.k = u.k2", False),
+    "full_join": ("SELECT f.k, f.s, g.w FROM (SELECT k, s FROM t WHERE "
+                  "k < 6) f FULL OUTER JOIN (SELECT k2, w FROM u WHERE "
+                  "k2 > 3) g ON f.k = g.k2", False),
+    "left_semi": ("SELECT k, v FROM t LEFT SEMI JOIN u ON t.k = u.k2 AND "
+                  "u.w > 40 AND t.v > 30.0", False),
 }
 
 
@@ -502,11 +516,13 @@ def test_q91_small_scale_is_empty():
     ("SELECT k FROM t WHERE EXISTS (SELECT k2 FROM u WHERE k2 = k)",
      "subquer"),
     ("SELECT CASE WHEN v > 1.0 THEN 1 ELSE 0 END AS c FROM t", "CASE"),
-    ("SELECT k, min(v) FROM t GROUP BY k", "min()"),
+    ("SELECT k, stddev(v) FROM t GROUP BY k", "stddev()"),
     ("SELECT upper(s) FROM t", "upper()"),
-    ("SELECT t.k FROM t LEFT JOIN u ON t.k = u.k2", "LEFT JOIN"),
+    ("SELECT t.k FROM t LEFT JOIN u ON t.k = u.k2 AND t.v > u.w",
+     "LEFT JOIN with a non-equi condition"),
     ("SELECT k FROM t WHERE v IS NULL", "IS NULL"),
-    ("SELECT k, count(DISTINCT s) FROM t GROUP BY k", "DISTINCT"),
+    ("SELECT k, count(DISTINCT s), count(DISTINCT v) FROM t GROUP BY k",
+     "distinct aggregates over more than one input"),
     ("SELECT -v AS nv FROM t", "unary minus"),
     ("SELECT CAST(k AS string) AS ks FROM t", "CAST"),
     ("SELECT k % 3 AS m FROM t", "remainder"),

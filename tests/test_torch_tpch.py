@@ -1,5 +1,5 @@
-"""TPC-H q1, q3, q6, q12, q14 and q22 through the port against the
-reference engine.
+"""TPC-H q1, q3, q4, q6, q12-q16, q18, q21 and q22 through the port
+against the reference engine.
 
 The port's numpy generators must give the reference generators' columns
 seed for seed, on the whole-table path and on the chunked one (string
@@ -8,9 +8,10 @@ queries (apply_overrides -> collect on the CPU) must equal the reference
 engine's, run from the reference's own query functions over parquet
 written from the reference's generators. q14 and q22 run the reference
 twice: with fusion and adaptive execution off and the native kernels on
-(the exec tree the port mirrors), and with the default conf. q1, q3, q6
-and q12 run it once, unfused, on its default plain path, against the
-port at 256-row scan batches, so many batches share one dictionary.
+(the exec tree the port mirrors), and with the default conf. The others
+run it once, unfused, on its default plain path, against the port at
+256-row scan batches, so many batches share one dictionary (and the
+aggregates merge many partials: q21's distinct counts, q18's sums).
 Strings, keys and counts exact, float sums within 1e-9 relative (the
 reference's own tolerance against its CPU oracle; the two engines sum in
 different orders).
@@ -56,7 +57,11 @@ _GENERATORS = {
     "lineitem": (datagen.gen_lineitem, datagen.LINEITEM_COLUMNS),
     "part": (datagen.gen_part, datagen.PART_COLUMNS),
     "customer": (datagen.gen_customer, datagen.CUSTOMER_COLUMNS),
-    "orders": (datagen.gen_orders, datagen.ORDERS_COLUMNS)}
+    "orders": (datagen.gen_orders, datagen.ORDERS_COLUMNS),
+    "supplier": (datagen.gen_supplier, datagen.SUPPLIER_COLUMNS),
+    "nation": (datagen.gen_nation, datagen.NATION_COLUMNS),
+    "region": (datagen.gen_region, datagen.REGION_COLUMNS),
+    "partsupp": (datagen.gen_partsupp, datagen.PARTSUPP_COLUMNS)}
 
 
 def _assert_columns_equal(got: dict, table: pa.Table, columns):
@@ -96,10 +101,9 @@ def _tables(orders_fraction=1.0):
     them and change nothing)."""
     orders = datagen.gen_orders(SF)
     n = int(len(orders["o_custkey"]) * orders_fraction)
-    return {"lineitem": datagen.gen_lineitem(SF),
-            "part": datagen.gen_part(SF),
-            "customer": datagen.gen_customer(SF),
-            "orders": {k: v[:n] for k, v in orders.items()}}
+    tables = {name: gen(SF) for name, (gen, _) in _GENERATORS.items()
+              if name != "orders"}
+    return dict(tables, orders={k: v[:n] for k, v in orders.items()})
 
 
 def _write(d, names, orders_fraction=1.0):
@@ -117,14 +121,15 @@ _QUERIES = {q: (lambda t, q=q: getattr(tpch, q)(
 _CASES = {"q14": ("q14", 1.0), "q22": ("q22", 1.0), "q22_few_orders":
           ("q22", 0.1)}
 # run by the reference once each, unfused, on its plain path
-_HOST_STRING_QUERIES = ("q1", "q3", "q6", "q12")
+_HOST_STRING_QUERIES = ("q1", "q3", "q4", "q6", "q12", "q13", "q15", "q16",
+                        "q18", "q21")
 
 
 @pytest.fixture(scope="module")
 def parquet_dirs(tmp_path_factory):
     """orders fraction -> a directory of the reference's tables."""
     dirs = {}
-    for frac, names in ((1.0, ("lineitem", "part", "customer", "orders")),
+    for frac, names in ((1.0, tuple(_GENERATORS)),
                         (0.1, ("customer", "orders"))):
         d = tmp_path_factory.mktemp(f"tpch_{int(frac * 100)}")
         _write(d, names, frac)
