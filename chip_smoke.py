@@ -69,12 +69,17 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    its distinct counts);
    then the group-by's float sums at q1's shape (the dense path, 6
    groups over 2,097,152 rows, q1's eight aggregates) and the sort
-   path's ``seg_sum`` kernel at q13's second aggregate (a few dozen keys
-   over 1.5M rows), the q5lite step's live rows and q18's last merge
-   (its running partial of about 36M order keys and one 2,097,152-row
-   batch), the kernel equal to its plain version bit for bit, each
-   against the host's values, beside ``index_add_`` (the one PyTorch
-   call that sums per group) and the bytes bound; then left, left semi and full joins of a 2,097,152-row
+   path's fold kernel (S1, ``seg_reduce``, counted as ``seg_sum``):
+   sums at q13's second aggregate (a few dozen keys over 1.5M rows), the
+   q5lite step's live rows and q18's last merge (its running partial of
+   about 36M order keys and one 2,097,152-row batch), min and max at
+   the last two, the kernel equal to its plain version bit for bit,
+   each against the host's values, beside ``index_add_`` or
+   ``scatter_reduce_`` (the one PyTorch call that does the same per
+   group), the kernel's device time and the bytes bound; then the C5
+   groups' float sums, min, max and any_valid on the dense and sort
+   paths and with no key, the card equal to the CPU bit for bit; then
+   left, left semi and full joins of a 2,097,152-row
    lineitem batch against the filtered orders on the card, each equal
    to the same call on the CPU;
    then TPC-H q22 at sf 10 (customer 1.5M rows, orders 15M), country
@@ -1079,12 +1084,13 @@ def _sums_record(case, got, want, ms, lib_ms, nbytes, rows, groups,
     return rec
 
 
-def _fold_case(dev, case, keys, x, iters):
-    """The sort path's float sums over rows sorted by key: the
-    ``seg_sum`` kernel against its plain version (``seg_fold``, bit for
-    bit) and the host's per-group sums (1e-9 relative), beside
-    ``index_add_`` over the same group ids. Returns the kernel's
-    record."""
+def _fold_case(dev, case, keys, x, iters, op="sum"):
+    """The sort path's fold over rows sorted by key: the S1 kernel
+    (``seg_reduce``, one launch) against its plain version (``seg_fold``
+    on the card, bit for bit) and the host's per-group values (sums 1e-9
+    relative, min and max exact), beside the one PyTorch call that does
+    the same per group (``index_add_``; ``scatter_reduce_`` with amin or
+    amax). Returns the kernel's record."""
     import numpy as np
     import torch
 
@@ -1094,42 +1100,119 @@ def _fold_case(dev, case, keys, x, iters):
     ks, xs = keys[order], x[order]
     starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
     sizes = np.diff(np.r_[starts, len(ks)])
-    want = np.add.reduceat(xs, starts) if len(xs) else xs
+    host = {"sum": np.add, "min": np.minimum, "max": np.maximum}[op]
+    want = host.reduceat(xs, starts) if len(xs) else xs
     d_x = torch.from_numpy(xs).to(dev)
     d_st = torch.from_numpy(starts).to(dev)
     d_sz = torch.from_numpy(sizes).to(dev)
     longest = int(sizes.max())
     seg = torch.from_numpy(np.repeat(np.arange(len(starts)), sizes)).to(dev)
-    got = kgb.seg_sum(d_x, d_st, d_sz, longest)
-    plain = kgb.seg_fold(d_x, d_st, d_sz, longest, torch.add)
     groups = len(starts)
+
+    def kernel():
+        return kgb.seg_reduce(d_x, d_st, d_sz, op)
+
+    def plain():
+        return kgb.seg_fold(d_x, d_st, d_sz, longest, kgb.OPS[op])
+
+    if op == "sum":
+        def library():
+            return torch.zeros(groups, dtype=d_x.dtype,
+                               device=dev).index_add_(0, seg, d_x)
+    else:
+        fill = float("inf") if op == "min" else float("-inf")
+
+        def library():
+            return torch.full((groups,), fill, dtype=d_x.dtype,
+                              device=dev).scatter_reduce_(
+                                  0, seg, d_x, "amin" if op == "min"
+                                  else "amax")
+    nbytes = len(xs) * d_x.element_size() + groups * (16 +
+                                                       d_x.element_size())
+    got = kernel()
     rec = _record(
         "seg_sum", "spark_rapids_tpu_torch/kernels/csrc/groupby.cu",
         "spark_rapids_tpu/ops/groupby.py:903 (_seg_scan, a jnp scan; no "
-        "pallas_call)", [got], [plain],
-        _time_ms(lambda: kgb.seg_sum(d_x, d_st, d_sz, longest), iters),
-        _time_ms(lambda: kgb.seg_fold(d_x, d_st, d_sz, longest, torch.add),
-                 iters),
-        _time_ms(lambda: torch.zeros(groups, dtype=torch.float64,
-                                     device=dev).index_add_(0, seg, d_x),
-                 iters),
-        len(xs) * 8 + groups * 24,
-        f"{case}: {len(xs)} rows, {groups} groups, longest {longest}",
-        show=False)
-    rec["device_ms"] = _device_ms(
-        lambda: kgb.seg_sum(d_x, d_st, d_sz, longest), "fold_level")
+        "pallas_call)", [got], [plain()], _time_ms(kernel, iters),
+        _time_ms(plain, iters), _time_ms(library, iters), nbytes,
+        f"{case}, {op}: {len(xs)} rows, {groups} groups, longest "
+        f"{longest}", show=False)
+    rec["op"] = op
+    rec["library"] = "index_add_" if op == "sum" else \
+        f"scatter_reduce_ a{op}"
+    rec["device_ms"] = _device_ms(kernel, "seg_fold_kernel")
     print(json.dumps(rec))
-    _sums_record(case, got.cpu().numpy(), want, rec["kernel_ms"],
-                 rec["library_ms"], len(xs) * 8 + groups * 24, len(xs),
-                 groups, plain_ms=rec["plain_ms"])
+    if op == "sum":
+        _sums_record(case, got.cpu().numpy(), want, rec["kernel_ms"],
+                     rec["library_ms"], nbytes, len(xs), groups,
+                     plain_ms=rec["plain_ms"])
+    elif not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError(f"group-by {case}: {op} differs from the "
+                             f"host's")
     return rec
+
+
+# the groups of C5 (tests/test_torch_groupby.py holds them against the
+# reference engine on the CPU)
+C5_GROUPS = ([-0.0], [-0.0, -0.0], [-0.0, -1e-310], [0.0, -0.0],
+             [-0.0, 0.0], [0.0, -0.0, 5.0], [-0.0, -0.0, 1.0],
+             [1e-310, -0.0])
+
+
+def _c5_case(dev):
+    """sum, min, max and any_valid of the C5 groups, float64 and
+    float32, on the dense path (a string key), the sort path (an integer
+    key: the S1 kernel) and alone with no key, on the card and on the
+    CPU: equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.ops import groupby as gb
+
+    d = np.concatenate(C5_GROUPS)
+    which = np.concatenate([[i] * len(g) for i, g in enumerate(C5_GROUPS)])
+    f = d.astype(np.float32)
+    specs = [gb.AggSpec(op, o) for o in (1, 2)
+             for op in ("sum", "min", "max", "any_valid")]
+    dic = np.array([f"g{i}" for i in range(len(C5_GROUPS))], dtype=object)
+    runs = {"dense": [([which.astype(np.int32), d, f], dt.STRING, dic)],
+            "sort": [([which.astype(np.int64), d, f], dt.INT64, None)],
+            "grand": [([which[which == i], d[which == i], f[which == i]],
+                       dt.INT64, None) for i in range(len(C5_GROUPS))]}
+    for path, inputs in runs.items():
+        for datas, ktype, kdic in inputs:
+            types = [ktype, dt.FLOAT64, dt.FLOAT32]
+            out = []
+            for on in (dev, "cpu"):
+                b = batch_from_numpy(datas, types,
+                                     dictionaries=[kdic, None, None],
+                                     device=on)
+                got = gb.reduce_aggregate(b, specs, types, on)[0] \
+                    if path == "grand" else \
+                    gb.groupby_aggregate(b, [0], specs, types)[0]
+                out.append([c.data.cpu() for c in got.columns])
+            for g, w in zip(*out):
+                same = g.dtype == w.dtype and (
+                    torch.equal(g.view(torch.int64 if g.element_size() == 8
+                                       else torch.int32),
+                                w.view(torch.int64 if w.element_size() == 8
+                                       else torch.int32))
+                    if g.is_floating_point() else torch.equal(g, w))
+                if not same:
+                    raise AssertionError(f"C5 groups, {path} path: the "
+                                         f"card differs from the CPU")
+    print(json.dumps({"phase": "groupby", "case": "C5 zero signs (dense, "
+                      "sort and grand; card against CPU)", "equal": True}))
 
 
 def phase_groupby(dev, lineitem, orders, customer):
     """Float sums on the two group-by paths at the queries' shapes: the
-    dense path at q1's, the sort path's ``seg_sum`` kernel at q13's,
-    q5lite's and q18's. Returns the kernel's record (q18's case, every
-    case under ``cases``)."""
+    dense path at q1's, the sort path's S1 kernel at q13's, q5lite's and
+    q18's, with its min and max at the last two; then the C5 groups, card
+    against CPU. Returns the kernel's record (q18's sums, every case
+    under ``cases``)."""
     import numpy as np
     import torch
 
@@ -1191,12 +1274,13 @@ def phase_groupby(dev, lineitem, orders, customer):
                       minlength=int(cust.max()) + 1)[cust]
     cases = [_fold_case(dev, "q13 second aggregate (order counts over "
                         "1.5M customers)", per.astype(np.int64),
-                        customer["c_acctbal"], 20)]
+                        customer["c_acctbal"], 100)]
     # the q5lite step's live rows
     keys, valid, vals = q5lite.gen_data(q5lite.N_ROWS, SEED_Q5)
     live = (vals > 0.5) & valid
-    cases.append(_fold_case(dev, "q5lite step (65,536 keys)", keys[live],
-                            vals[live], 20))
+    for op in ("sum", "min", "max"):
+        cases.append(_fold_case(dev, "q5lite step (65,536 keys)",
+                                keys[live], vals[live], 100, op))
     # q18's last merge: the running partial (the order keys of every
     # batch but the last, with their quantity sums) and the last batch
     lk, lq = lineitem["l_orderkey"], lineitem["l_quantity"]
@@ -1205,8 +1289,11 @@ def phase_groupby(dev, lineitem, orders, customer):
     pkeys = np.flatnonzero(np.bincount(lk[:cut]))
     keys = np.concatenate([pkeys, lk[cut:]])
     vals = np.concatenate([part[pkeys], lq[cut:]])
-    main = _fold_case(dev, "q18 last merge (running partial and one "
-                      "scan batch)", keys, vals, 5)
+    q18 = "q18 last merge (running partial and one scan batch)"
+    main = _fold_case(dev, q18, keys, vals, 20)
+    for op in ("min", "max"):
+        cases.append(_fold_case(dev, q18, keys, vals, 20, op))
+    _c5_case(dev)
     torch.cuda.synchronize()
     main["cases"] = cases + [dict(main)]
     return main

@@ -156,9 +156,11 @@ def _declare(stem: str, lib: ctypes.CDLL) -> None:
                                          _P, _P]
         lib.srt_k6_substring.restype = _I
     elif stem == "groupby":
-        lib.srt_seg_sum_level.argtypes = [_P, _I, _P, _P, _P, _LL, _LL, _I,
-                                          _P, _P]
-        lib.srt_seg_sum_level.restype = _I
+        lib.srt_seg_fold_chunk.argtypes = []
+        lib.srt_seg_fold_chunk.restype = _LL
+        lib.srt_seg_fold.argtypes = [_I, _I, _P, _I, _LL, _P, _P, _LL, _P,
+                                     _P, _P, ctypes.c_uint, _P]
+        lib.srt_seg_fold.restype = _I
 
 
 def check(err: int, what: str) -> None:
@@ -169,19 +171,24 @@ def check(err: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
+    """The raw handle of ``device``'s current stream, from torch's raw
+    accessor: cheaper than building a Stream object on every launch."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.device(device).index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def require_cuda(name: str, tensors: List, dtypes: Optional[List] = None
                  ) -> None:
     """Validate what a kernel takes: one CUDA device, contiguous, and the
     stated dtypes."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()  # -1 on the CPU
     for i, t in enumerate(tensors):
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name}: every tensor must be on {dev}")
+        if dev < 0 or t.get_device() != dev:
+            raise ValueError(f"{name}: every tensor must be on "
+                             f"{tensors[0].device}, a CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor {i} is not contiguous")
         if dtypes is not None and dtypes[i] is not None and \

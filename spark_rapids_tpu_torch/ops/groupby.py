@@ -26,19 +26,23 @@ sum: the global prefix's differences carry rounding error that scales
 with the running prefix of OTHER groups (catastrophic cancellation when a
 huge group precedes a tiny one) and an Inf/NaN would poison every later
 group. On the sort path each group's rows fold in row order in pieces
-of 8, then the pieces the same way (``kernels.groupby``: ``seg_sum``,
-a kernel on the card, and ``seg_fold``; in the role of the reference's
-``_seg_scan``): no step combines rows of two groups, so error and poison
-stay in the group they belong to, and no float is added atomically.
-Integer sums and counts are exact prefix-sum differences (exact under
-wrap).
+of 8, then the pieces the same way, and so do its min and max
+(``kernels.groupby.seg_reduce``: one kernel launch a call on the card,
+``seg_fold`` on the CPU; in the role of the reference's ``_seg_scan``):
+no step combines rows of two groups, so error and poison stay in the
+group they belong to, and no float is added atomically. Integer sums
+and counts are exact prefix-sum differences (exact under wrap).
 
 The ops are the reference's but the central moments: sum, min, max,
 count, count_star, first, last and any_valid (the first valid value).
 As on the reference's XLA backend, a float min, max or sum that is
 subnormal is a zero of its sign (``sortkeys.flush_subnormals``, C1), and
 so is the sort path's any_valid; first, last and the dense path's
-any_valid return the row's value untouched.
+any_valid return the row's value untouched. The sign of a zero follows
+the reference too (C5): a float sum of zeros is +0.0 on both paths and
+in the grand reduction; the dense path's and the grand min and max
+order -0.0 below +0.0; the sort path's min, max and any_valid give
++0.0 for every zero.
 Rows masked out by ``live_mask`` (a fused filter) never reach a group.
 Grand aggregates (no keys) are whole-batch reductions
 (:func:`reduce_aggregate`), with no sort.
@@ -168,6 +172,26 @@ def _fills(in_t: dt.DType, kd: torch.dtype):
     return info.max, info.min
 
 
+def _plus_zero(x: torch.Tensor) -> torch.Tensor:
+    """``x + 0``: a float -0.0 becomes +0.0, all else stays (C5). The
+    reference's float sums start from +0.0 (XLA's reduce), and every
+    output of its sort path's segmented scans passes through ``+ 0.0``:
+    ``jax.lax.associative_scan`` interleaves its even and odd results by
+    padding each with zeros and adding the two."""
+    return x + 0 if x.is_floating_point() else x
+
+
+def _zeros_ordered(x: torch.Tensor) -> torch.Tensor:
+    """-0.0 as the negative float closest to zero, so that a min or max
+    orders it below +0.0 and above every negative value, as XLA's min
+    and max do (C5); ``flush_subnormals`` of the result makes it -0.0
+    again."""
+    if not x.is_floating_point():
+        return x
+    fi = torch.finfo(x.dtype)  # tiny * eps: the least subnormal
+    return torch.where((x == 0) & torch.signbit(x), -fi.tiny * fi.eps, x)
+
+
 def reduce_aggregate(batch: ColumnarBatch, aggs: List[AggSpec],
                      dtypes: List[dt.DType], device
                      ) -> Tuple[ColumnarBatch, List[dt.DType]]:
@@ -198,10 +222,11 @@ def reduce_aggregate(batch: ColumnarBatch, aggs: List[AggSpec],
             x = d.to(rtype.torch_dtype)
             if v is not None:
                 x = torch.where(v, x, torch.zeros_like(x))
-            data = flush_subnormals(x.sum().reshape(1))
+            data = _plus_zero(flush_subnormals(x.sum().reshape(1)))
             validity = n_valid > 0
         elif spec.op in ("min", "max"):
-            dd = d.to(torch.int8) if rtype is dt.BOOLEAN else d
+            dd = d.to(torch.int8) if rtype is dt.BOOLEAN else \
+                _zeros_ordered(d)
             big, small = _fills(rtype, dd.dtype)
             fill = big if spec.op == "min" else small
             if v is not None:
@@ -373,8 +398,8 @@ def _dense_groupby(cols, dtypes, key_ordinals, aggs, live_mask, layout):
             x = d.to(torch.float64)
             xs.append(x if v is None else torch.where(v, x,
                                                       torch.zeros_like(x)))
-        totals = flush_subnormals(per_slot(
-            codes[:, None].expand(n, len(xs)), torch.stack(xs, 1))[slots])
+        totals = _plus_zero(flush_subnormals(per_slot(
+            codes[:, None].expand(n, len(xs)), torch.stack(xs, 1))[slots]))
         sums = {i: totals[:, j] for j, i in enumerate(float_sums)}
 
     agg_d, agg_v = [], []
@@ -398,7 +423,8 @@ def _dense_groupby(cols, dtypes, key_ordinals, aggs, live_mask, layout):
                                 total + 1, "sum", 0)[slots])
             agg_v.append(valid)
         elif spec.op in ("min", "max"):
-            dd = d.to(torch.int8) if dtypes[o] is dt.BOOLEAN else d
+            dd = d.to(torch.int8) if dtypes[o] is dt.BOOLEAN else \
+                _zeros_ordered(d)
             fill = _fills(dtypes[o], dd.dtype)[spec.op == "max"]
             vals = flush_subnormals(_sweep(
                 contributing(o), dd, total + 1,
@@ -514,16 +540,13 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
                                              device=dev)])
     sizes = ends - starts
     lasts = ends - 1
-    longest = []
 
-    def seg_fold(x, op):
-        """``op`` over each group's sorted rows (a float64 sum through
-        the ``seg_sum`` kernel): one value per group."""
-        if not longest:
-            longest.append(int(sizes.max()) if num_groups else 0)
-        if op is torch.add:
-            return kgb.seg_sum(x, starts, sizes, longest[0])
-        return kgb.seg_fold(x, starts, sizes, longest[0], op)
+    def fold(x, op):
+        """``op`` ("sum", "min" or "max") over each group's sorted rows,
+        through the S1 kernel on the card: one value per group, its
+        subnormals flushed (C4) and a float zero +0.0 (C5)."""
+        return _plus_zero(flush_subnormals(kgb.seg_reduce(x, starts, sizes,
+                                                          op)))
 
     def seg_sum_exact(x: torch.Tensor) -> torch.Tensor:
         prefix = torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
@@ -566,14 +589,13 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
                 before = (seen - v.to(torch.int64))[starts]
                 at = torch.searchsorted(seen, before + 1).clamp(
                     max=max(n_live - 1, 0))
-            agg_d[i] = flush_subnormals(d[at])
+            agg_d[i] = _plus_zero(flush_subnormals(d[at]))
         elif spec.op in ("min", "max"):
             dd = d.to(torch.int8) if dtypes[o] is dt.BOOLEAN else d
             fill = _fills(dtypes[o], dd.dtype)[spec.op == "max"]
             if v is not None:
                 dd = torch.where(v, dd, torch.full_like(dd, fill))
-            vals = flush_subnormals(seg_fold(
-                dd, torch.minimum if spec.op == "min" else torch.maximum))
+            vals = fold(dd, spec.op)
             agg_d[i] = vals.to(torch.bool) if dtypes[o] is dt.BOOLEAN \
                 else vals
         elif dtypes[o].is_floating:  # float sums: one scan for all
@@ -587,10 +609,9 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
                 x = torch.where(v, x, torch.zeros_like(x))
             agg_d[i] = seg_sum_exact(x)
     if float_sums:
-        sums = seg_fold(torch.stack([x for _, x in float_sums], dim=1),
-                        torch.add)
+        sums = fold(torch.stack([x for _, x in float_sums], dim=1), "sum")
         for j, (i, _) in enumerate(float_sums):
-            agg_d[i] = flush_subnormals(sums[:, j])
+            agg_d[i] = sums[:, j]
 
     # ---- keys -------------------------------------------------------------
     key_d, key_v = [], []

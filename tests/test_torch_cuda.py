@@ -505,8 +505,8 @@ def test_groupby_float_sums_card_equals_cpu(keys):
                              [dic, None, None], device=d)
         nk.reset_launches()
         got, _ = gb.groupby_aggregate(b, [0], specs, types)
-        if d == dev:
-            assert nk.LAUNCHES["seg_sum"] == (keys != "dense")
+        if d == dev:  # the sums (stacked), the min and the max
+            assert nk.LAUNCHES["seg_sum"] == (0 if keys == "dense" else 3)
         out.append([(c.data.cpu().numpy(), None if c.validity is None
                      else c.validity.cpu().numpy()) for c in got.columns])
     for (gd, gv), (wd, wv) in zip(*out):
@@ -519,42 +519,186 @@ def test_groupby_float_sums_card_equals_cpu(keys):
             np.testing.assert_array_equal(gd, wd)
 
 
+# group sizes by case for the S1 kernel: around its cut-offs (a thread a
+# group up to 64 rows, a warp up to 4,096, chunks of 4,096 folded 512 rows
+# a warp beyond), and the 8-row pieces' levels
+_CUTOFFS = [7, 8, 9, 63, 64, 65, 511, 512, 513, 4095, 4096, 4097, 8191,
+            8192, 8193, 12289, 4096 * 9 + 1]
+
+
+def _fold_sizes(case, r):
+    return {"empty": np.zeros(0, np.int64),
+            "one_group": np.array([1000], np.int64),
+            "one_row": np.ones(100_003, np.int64),
+            "short": r.integers(1, 9, 50_000),
+            "long": np.concatenate([r.integers(1, 9, 5000),
+                                    [300_000, 9, 64, 65, 513]]),
+            "columns": r.integers(1, 41, 20_000),
+            "cutoffs": np.concatenate([_CUTOFFS, r.integers(1, 9, 100),
+                                       _CUTOFFS[::-1]]),
+            "huge": np.array([3, (1 << 22) + 3, 5], np.int64),
+            "mixed": np.concatenate([r.integers(1, 9, 3000),
+                                     r.integers(9, 5000, 300),
+                                     r.integers(5000, 70_000, 12)])
+            }[case].astype(np.int64)
+
+
+def _fold_values(n, m, dtype, r):
+    """[n] (m == 1) or [n, m] values of ``dtype``: floats over six
+    decades with Inf, NaN, -0.0, +0.0 and 1e-310 (flushed to zero in
+    float32) spread over the rows; integers over their whole range."""
+    shape = n if m == 1 else (n, m)
+    if dtype in (torch.float32, torch.float64):
+        x = r.standard_normal(shape) * 10.0 ** r.integers(-3, 4, shape)
+        flat = x.reshape(-1)
+        if flat.size > 10:
+            at = r.integers(0, flat.size, 12)
+            flat[at] = [np.inf, np.nan, -np.inf, -0.0, 0.0, 1e-310,
+                        -1e-310, -0.0, np.nan, -0.0, 0.0, -0.0]
+        return torch.from_numpy(x).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.from_numpy(r.integers(info.min, info.max, shape,
+                                       endpoint=True)).to(dtype)
+
+
+def _fold_check(x, sizes, op, dev):
+    """The kernel on the card against ``seg_fold`` on the CPU: one launch
+    (none without groups), equal bit for bit (NaN where NaN)."""
+    starts = np.r_[0, np.cumsum(sizes)[:-1]].astype(np.int64)[:len(sizes)]
+    st, sz = torch.from_numpy(starts), torch.from_numpy(sizes)
+    nk.reset_launches()
+    got = kgb.seg_reduce(x.to(dev), st.to(dev), sz.to(dev), op).cpu()
+    assert nk.LAUNCHES["seg_sum"] == (1 if len(sizes) else 0)
+    want = kgb.seg_fold(x, st, sz, int(sizes.max()) if len(sizes) else 0,
+                        kgb.OPS[op])
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if x.is_floating_point():
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        bits = torch.int64 if x.dtype == torch.float64 else torch.int32
+        assert torch.equal(got[ok].view(bits), want[ok].view(bits))
+    else:
+        assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["empty", "one_row", "short", "long",
-                                  "columns"])
+                                  "columns", "one_group", "cutoffs",
+                                  "huge", "mixed"])
 def test_seg_sum_kernel_equals_plain(case):
-    """The ``seg_sum`` kernel on the card against its plain version on
-    the CPU, bit for bit (NaN where NaN): no groups; 100,003 one-row
-    groups; groups of one to eight rows (one level); groups up to 300,000
-    rows beside short ones (seven levels, spare pieces); three columns
-    over groups of one to 40 rows. Values span six decades, with an Inf
-    and a NaN."""
+    """The S1 kernel's float64 sums on the card against its plain version
+    on the CPU, bit for bit, one launch a call: no groups; one group;
+    100,003 one-row groups; groups of one to eight rows; groups up to
+    300,000 rows beside short ones; three columns; sizes either side of
+    each cut-off; a group of 2^22 + 3 rows; a mix of all shapes. Then
+    one to five columns over the cut-offs. Values span six decades, with
+    Inf, NaN, -0.0 and 1e-310."""
     dev = _card()
     r = np.random.default_rng(len(case))
-    sizes = {"empty": np.zeros(0, np.int64),
-             "one_row": np.ones(100_003, np.int64),
-             "short": r.integers(1, 9, 50_000),
-             "long": np.concatenate([r.integers(1, 9, 5000),
-                                     [300_000, 9, 64, 65, 513]]),
-             "columns": r.integers(1, 41, 20_000)}[case].astype(np.int64)
-    starts = np.r_[0, np.cumsum(sizes)[:-1]].astype(np.int64)[:len(sizes)]
+    sizes = _fold_sizes(case, r)
     n = int(sizes.sum())
-    x = r.standard_normal((n, 3) if case == "columns" else n) * \
-        10.0 ** r.integers(-3, 4, (n, 3) if case == "columns" else n)
-    if n > 10:
-        x.reshape(n, -1)[[3, n - 2], 0] = [np.inf, np.nan]
-    longest = int(sizes.max()) if len(sizes) else 0
-    nk.reset_launches()
-    got = kgb.seg_sum(torch.from_numpy(x).to(dev),
-                      torch.from_numpy(starts).to(dev),
-                      torch.from_numpy(sizes).to(dev), longest).cpu()
-    assert nk.LAUNCHES["seg_sum"] == (1 if len(sizes) else 0)
-    want = kgb.seg_fold(torch.from_numpy(x), torch.from_numpy(starts),
-                        torch.from_numpy(sizes), longest, torch.add)
-    assert got.shape == want.shape
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    ok = ~torch.isnan(want)
-    assert torch.equal(got[ok].view(torch.int64), want[ok].view(torch.int64))
+    _fold_check(_fold_values(n, 3 if case == "columns" else 1,
+                             torch.float64, r), sizes, "sum", dev)
+    if case == "cutoffs":
+        for m in range(1, 6):
+            _fold_check(_fold_values(n, m, torch.float64, r), sizes, "sum",
+                        dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int8,
+                                   torch.int16, torch.int32, torch.int64],
+                         ids=str)
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("case", ["one_row", "cutoffs", "mixed"])
+def test_seg_reduce_min_max_kernel_equals_plain(case, op, dtype):
+    """min and max through the same kernel, over every lane type the sort
+    path gives it, against ``seg_fold`` with the kernel's ops (NaN wins,
+    a tie keeps the earlier row), bit for bit, one launch a call; two
+    columns as well at the cut-offs."""
+    dev = _card()
+    r = np.random.default_rng(len(case) + len(op))
+    sizes = _fold_sizes(case, r)
+    n = int(sizes.sum())
+    _fold_check(_fold_values(n, 1, dtype, r), sizes, op, dev)
+    if case == "cutoffs":
+        _fold_check(_fold_values(n, 2, dtype, r), sizes, op, dev)
+
+
+@pytest.mark.cuda
+def test_seg_reduce_kernel_refuses_what_it_does_not_take():
+    """A CUDA tensor of a type the kernel does not take raises; it does
+    not fall back."""
+    dev = _card()
+    st = torch.zeros(1, dtype=torch.int64, device=dev)
+    sz = torch.ones(1, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        kgb.seg_reduce(torch.ones(1, dtype=torch.float16, device=dev), st,
+                       sz, "min")
+    with pytest.raises(TypeError):
+        kgb.seg_reduce(torch.ones(1, dtype=torch.float32, device=dev), st,
+                       sz, "sum")
+    with pytest.raises(TypeError):
+        kgb.seg_reduce(torch.ones(1, dtype=torch.uint8, device=dev), st,
+                       sz, "max")
+
+
+# the groups of C5 (tests/test_torch_groupby.py holds the CPU against the
+# reference engine)
+_C5_GROUPS = ([-0.0], [-0.0, -0.0], [-0.0, -1e-310], [0.0, -0.0],
+              [-0.0, 0.0], [0.0, -0.0, 5.0], [-0.0, -0.0, 1.0],
+              [1e-310, -0.0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dense", "sort", "grand"])
+def test_zero_signs_of_float_aggregates_card_equal_cpu(path):
+    """sum, min, max, any_valid, first and last of the C5 groups on the
+    card and on the CPU, bit for bit: a string key (the dense path), an
+    integer key (the sort path, through the S1 kernel) and each group
+    alone with no key."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.ops import groupby as gb
+
+    dev = _card()
+    d = np.concatenate(_C5_GROUPS)
+    which = np.concatenate([[i] * len(g) for i, g in enumerate(_C5_GROUPS)])
+    f = d.astype(np.float32)
+    specs = [gb.AggSpec(op, o) for o in (1, 2)
+             for op in ("sum", "min", "max", "any_valid", "first", "last")]
+    types = [dt.INT64, dt.FLOAT64, dt.FLOAT32]
+    if path == "dense":
+        types[0] = dt.STRING
+        dic = np.array([f"g{i}" for i in range(len(_C5_GROUPS))],
+                       dtype=object)
+        inputs = [([which.astype(np.int32), d, f], [dic, None, None])]
+    elif path == "sort":
+        inputs = [([which.astype(np.int64), d, f], [None] * 3)]
+    else:
+        inputs = [([which[which == i].astype(np.int64), d[which == i],
+                    f[which == i]], [None] * 3)
+                  for i in range(len(_C5_GROUPS))]
+    for datas, dics in inputs:
+        out = []
+        for on in (dev, "cpu"):
+            b = batch_from_numpy(datas, types, dictionaries=dics, device=on)
+            nk.reset_launches()
+            if path == "grand":
+                got, _ = gb.reduce_aggregate(b, specs, types, on)
+            else:
+                got, _ = gb.groupby_aggregate(b, [0], specs, types)
+            if on == dev:  # the sums (stacked), then each min and max
+                assert nk.LAUNCHES["seg_sum"] == (5 if path == "sort" else 0)
+            out.append([c.data.cpu() for c in got.columns])
+        for g, w in zip(*out):
+            assert g.dtype == w.dtype
+            if g.is_floating_point():
+                bits = torch.int64 if g.dtype == torch.float64 \
+                    else torch.int32
+                assert torch.equal(g.view(bits), w.view(bits))
+            else:
+                assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -244,7 +244,7 @@ def test_seg_sum_matches_reference_seg_scan(case):
     boundary = np.zeros((n, 1), dtype=bool)
     boundary[starts] = True
     got = kgb.seg_sum(torch.from_numpy(x), torch.from_numpy(starts),
-                      torch.from_numpy(sizes), int(sizes.max())).numpy()
+                      torch.from_numpy(sizes)).numpy()
     scan = jax.jit(lambda v, b: rgb._seg_scan(v, b, jnp.add))
     want = np.asarray(scan(jnp.asarray(x), jnp.asarray(boundary)))
     np.testing.assert_allclose(got, want[starts + sizes - 1], rtol=1e-12,
@@ -257,6 +257,136 @@ def test_seg_sum_matches_reference_seg_scan(case):
         for i in range(starts[g] + 1, starts[g] + sizes[g]):
             acc = acc + x[i, 0]
         assert got[g, 0] == acc or g == 1
+
+
+def test_seg_sum_and_seg_reduce_take_no_longest():
+    """The folds find each group's levels themselves: no ``longest``
+    (on the card that was a read of the device each batch)."""
+    import inspect
+
+    from spark_rapids_tpu_torch.kernels import groupby as kgb
+
+    assert list(inspect.signature(kgb.seg_sum).parameters) == \
+        ["x", "starts", "sizes"]
+    assert list(inspect.signature(kgb.seg_reduce).parameters) == \
+        ["x", "starts", "sizes", "op"]
+    x = torch.tensor([3.0, -1.0, 2.0, 7.0], dtype=torch.float64)
+    starts = torch.tensor([0, 1], dtype=torch.int64)
+    sizes = torch.tensor([1, 3], dtype=torch.int64)
+    with pytest.raises(TypeError):
+        kgb.seg_sum(x, starts, sizes, 3)
+    assert kgb.seg_sum(x, starts, sizes).tolist() == [3.0, 8.0]
+    assert kgb.seg_reduce(x, starts, sizes, "min").tolist() == [3.0, -1.0]
+    assert kgb.seg_reduce(x.to(torch.int32), starts, sizes,
+                          "max").tolist() == [3, 7]
+
+
+# -- C5: the sign of a zero in float aggregates -------------------------------
+
+# Groups of one double column. The reference's dense path and grand
+# reduction sum from +0.0 and order -0.0 below +0.0 in min and max; its
+# sort path gives +0.0 for every zero result (each output of its
+# segmented scans passes through a + 0.0). -1e-310 counts as -0.0 (C1).
+_C5_GROUPS = {
+    "neg_zero": [-0.0],
+    "neg_zeros": [-0.0, -0.0],
+    "neg_zero_neg_subnormal": [-0.0, -1e-310],
+    "zero_neg_zero": [0.0, -0.0],
+    "neg_zero_zero": [-0.0, 0.0],
+    "zeros_five": [0.0, -0.0, 5.0],
+    "neg_zeros_one": [-0.0, -0.0, 1.0],
+    "subnormal_neg_zero": [1e-310, -0.0],
+}
+_C5_AGGS = "sum(d) AS s, min(d) AS lo, max(d) AS hi, min(f) AS flo, " \
+    "max(f) AS fhi"
+
+
+def _c5_tables():
+    """Name -> columns: ``t_dense`` (a string key, 8 slots: the dense
+    path), ``t_sort`` (an integer key plus a row of key 100000: past 128
+    slots, the sort path) and one keyless table per group."""
+    names = sorted(_C5_GROUPS)
+    d = np.concatenate([_C5_GROUPS[g] for g in names])
+    which = np.concatenate([[i] * len(_C5_GROUPS[g])
+                            for i, g in enumerate(names)])
+    tables = {"t_dense": {"k": np.array([f"g{i}" for i in which],
+                                        dtype=object), "d": d},
+              "t_sort": {"k": np.r_[which, 100000].astype(np.int64),
+                         "d": np.r_[d, 1.0]}}
+    for i, g in enumerate(names):
+        tables[f"t{i}"] = {"d": np.array(_C5_GROUPS[g])}
+    for cols in tables.values():
+        cols["f"] = cols["d"].astype(np.float32)
+    return tables
+
+
+@pytest.fixture(scope="module")
+def c5_results():
+    """(path, group) -> (reference row, port row), each aggregate as a
+    bit pattern; one reference and one port session for all cases."""
+    from spark_rapids_tpu.api import Session as RSession
+
+    from spark_rapids_tpu_torch.api import Session
+
+    rs, s = RSession(), Session(device="cpu")
+    for name, cols in _c5_tables().items():
+        rs.create_temp_view(name, rpn.InMemorySource(dict(cols)))
+        s.create_temp_view(name, pn.InMemorySource(dict(cols)))
+    names = sorted(_C5_GROUPS)
+    out = {}
+
+    def bits(frame, i):
+        return [("nan",) if np.isnan(frame[c][i]) else
+                ("f", np.asarray(frame[c][i], np.float64).view(np.int64))
+                for c in frame if c != "k"]
+
+    def run(text):
+        want = rs.sql(text).collect()
+        return ({c: want[c].to_numpy() for c in want.columns},
+                {c: np.asarray(v) for c, v in s.sql(text).collect().items()})
+
+    for path in ("dense", "sort"):
+        want, got = run(f"SELECT k, {_C5_AGGS} FROM t_{path} GROUP BY k "
+                        f"ORDER BY k")
+        for i, g in enumerate(names):
+            out[path, g] = bits(want, i), bits(got, i)
+    for i, g in enumerate(names):  # an average too: a grand query is cheap
+        want, got = run(f"SELECT {_C5_AGGS}, avg(d) AS a FROM t{i}")
+        out["grand", g] = bits(want, 0), bits(got, 0)
+    return out
+
+
+@pytest.mark.parametrize("group", sorted(_C5_GROUPS))
+@pytest.mark.parametrize("path", ["dense", "sort", "grand"])
+def test_zero_signs_of_float_aggregates_match_reference_engine(
+        c5_results, path, group):
+    """sum, min and max of a double column (and its avg with no key) and
+    min and max of a float column, bit for bit against the reference
+    engine (C5)."""
+    want, got = c5_results[path, group]
+    assert got == want
+
+
+def test_sort_path_any_valid_zero_sign_matches_reference():
+    """The sort path's any_valid rides the same segmented scan, so a
+    -0.0 there is +0.0 as well; first keeps the row's -0.0 (C5)."""
+    k = np.array([0, 0, 1, 2, 2], dtype=np.int64)
+    d = np.array([-0.0, 1.0, -1e-310, 0.0, -0.0])
+    valid = np.array([True, True, True, False, True])
+    types = ["bigint", "double"]
+    specs = [("any_valid", 1), ("first", 1), ("last", 1)]
+    rb, rtypes = _reference_batch([k, d], types, [None, valid], len(k))
+    want, _ = rgb.groupby_aggregate(rb, [0], [rgb.AggSpec(*a)
+                                              for a in specs], rtypes)
+    tb, ttypes = _port_batch([k, d], types, [None, valid])
+    got, _ = tgb.groupby_aggregate(tb, [0], [tgb.AggSpec(*a)
+                                             for a in specs], ttypes)
+    for i in range(1, 4):
+        gd, gv = _decode(got.columns[i], 3)
+        wd, wv = _decode(want.columns[i], 3)
+        np.testing.assert_array_equal(gv, wv)
+        assert gd[gv].view(np.int64).tolist() == \
+            wd[wv].view(np.int64).tolist(), specs[i - 1]
 
 
 # -- count(DISTINCT) ----------------------------------------------------------
