@@ -56,13 +56,18 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    launched during the query;
 7. the other TPC-H queries of ``tpch.INPUTS`` at sf 10 over the same
    lineitem (and orders 15M, customer 1.5M, supplier 100k, nation 25,
-   partsupp 8M), generated once with its string columns as
+   region 5, partsupp 8M), generated once with its string columns as
    ``HostStrings`` (one sorted dictionary per table): q1, q3, q6 and
-   q12, then q4, q13, q15, q16, q18 and q21, each against its numpy
-   oracle (strings, keys and counts exact, float sums and averages
-   within 1e-9 relative) with K1 launched during each, K3 during all
-   but q1 and q6, K2 during q13 and q21 and K4 during q16 (every
-   launch count printed), its peak device memory, and q3's build rows;
+   q12, q4, q13, q15, q16, q18 and q21, then q5, q10, q19, q2, q17, q7,
+   q8, q9, q11 and q20, each against its numpy oracle (strings, keys
+   and counts exact, float sums and averages within 1e-9 relative),
+   with rows (a grand aggregate's not null), failing unless it launched
+   every kernel of its path (``PATH_KERNELS``; every launch count
+   printed), with its warm wall, its peak device memory, and q3's
+   build rows; q5 with ``tpch.QUERY_CONF`` (its written join order: the
+   greedy one joins customer on the nation key alone), q11 with TPC-H's
+   fraction for the scale (0.0001 / sf; the reference's literal is the
+   sf-1 value and keeps no part at sf 10);
    q1 also in a profiled run: its group-by calls' device time (the
    dense path since the tenth slice), failing if ``index_add_`` ran;
    q21 again with every aggregate step timed apart (the merge loop of
@@ -133,7 +138,23 @@ PATH_KERNELS = {"q26": ("partition_order", "radix_order", "probe"),
                 "q15": ("partition_order", "probe", "seg_sum"),
                 "q16": ("partition_order", "probe", "match_table"),
                 "q18": ("partition_order", "probe", "seg_sum"),
-                "q21": ("partition_order", "probe", "radix_order")}
+                "q21": ("partition_order", "probe", "radix_order"),
+                "q5": ("partition_order", "probe"),
+                "q10": ("partition_order", "probe", "seg_sum"),
+                "q19": ("partition_order", "probe", "match_table"),
+                "q2": ("partition_order", "probe", "match_table", "seg_sum"),
+                "q17": ("partition_order", "probe", "match_table",
+                        "seg_sum"),
+                "q7": ("partition_order", "probe", "radix_order", "seg_sum"),
+                "q8": ("partition_order", "probe", "radix_order", "seg_sum"),
+                "q9": ("partition_order", "probe", "radix_order",
+                       "match_table", "seg_sum"),
+                "q11": ("partition_order", "probe", "seg_sum"),
+                "q20": ("partition_order", "probe", "radix_order",
+                        "match_table", "seg_sum")}
+# q11's fraction as TPC-H scales it (0.0001 / sf): the reference's literal
+# is the sf-1 value, which keeps no part at sf 10
+Q11_FRACTION = 0.0001 / SF
 KERNELS = ("partition_order", "radix_order", "probe", "match_table",
            "like_table", "substring", "seg_sum")
 # the reference's window budget (native/kernels/strings.py _WINDOW_BUDGET)
@@ -854,12 +875,12 @@ def phase_q5lite(dev):
     return rec
 
 
-def _plan_runner(dev, plan_fn):
+def _plan_runner(dev, plan_fn, conf=None):
     """A query run: the plan through apply_overrides -> collect."""
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
-    return lambda: collect(apply_overrides(plan_fn(), device=dev))
+    return lambda: collect(apply_overrides(plan_fn(), conf, device=dev))
 
 
 def _run_query(name, run, nk):
@@ -936,23 +957,29 @@ def phase_tpch(dev, name, tables, nk):
     from spark_rapids_tpu_torch.benchmarks import datagen, tpch
 
     args = [tables[t] for t in tpch.INPUTS[name]]
+    if name == "q11":
+        args.append(Q11_FRACTION)
     t0 = time.perf_counter()
     want = getattr(tpch, f"{name}_numpy")(*args)
     oracle_s = time.perf_counter() - t0
+    conf = tpch.QUERY_CONF.get(name)
     got, rec = _run_query(name, _plan_runner(
-        dev, lambda: getattr(tpch, name)(*args)), nk)
+        dev, lambda: getattr(tpch, name)(*args), conf), nk)
     _check_columns(name, got, want)
     rows = len(next(iter(want.values())))
-    if not rows or (name == "q6" and want["revenue"][0] is None):
+    if not rows or any(c[0] is None for c in want.values()):
         raise AssertionError(f"{name} at sf {SF} must return rows")
-    run = _plan_runner(dev, lambda: getattr(tpch, name)(*args))
+    run = _plan_runner(dev, lambda: getattr(tpch, name)(*args), conf)
     if name == "q1":
         rec.update(_groupby_profile(run))
     if name == "q21":
         rec.update(_aggregate_steps(run))
     rec.update({f"{t}_rows": len(next(iter(tables[t].values())))
                 for t in tpch.INPUTS[name]})
-    rec.update(result_rows=rows, oracle_s=oracle_s, matches_oracle=True)
+    if name == "q11":
+        rec.update(fraction=Q11_FRACTION)
+    rec.update(result_rows=rows, oracle_s=oracle_s, matches_oracle=True,
+               conf=conf)
     if name == "q3":
         # the reordered chain: filtered lineitem streams, filtered orders
         # build the first join, filtered customer the second
@@ -1497,6 +1524,7 @@ def main() -> int:
                   "customer": customer, "part": part,
                   "supplier": datagen.gen_supplier(SF),
                   "nation": datagen.gen_nation(SF),
+                  "region": datagen.gen_region(SF),
                   "partsupp": datagen.gen_partsupp(SF)}
         print(f"data: sf {SF}, {len(ss['ss_item_sk'])} sales, "
               f"{len(item['i_item_sk'])} items, {len(want['cid'])} q26 "

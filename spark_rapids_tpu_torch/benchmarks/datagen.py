@@ -1,5 +1,5 @@
-"""The columns of the TPC-H generators that the port's queries read (q1,
-q3, q4, q6, q12-q16, q18, q21 and q22), in numpy alone.
+"""The columns of the TPC-H generators that the port's queries read (all
+22 of the reference's plans), in numpy alone.
 
 Each function replays spark_rapids_tpu/benchmarks/datagen.py's
 ``default_rng`` draws in the same order with the same bounds (a bounded
@@ -49,20 +49,29 @@ REGIONS = np.array(["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"],
                    dtype=object)
 ORDER_STATUS = np.array(["F", "O", "P"], dtype=object)
 BRANDS = np.array([f"Brand#{b}" for b in range(11, 56)], dtype=object)
+P_CONTAINERS_1 = ["SM", "MED", "LG", "JUMBO", "WRAP"]
+P_CONTAINERS_2 = ["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"]
+SHIP_INSTRUCT = np.array(["DELIVER IN PERSON", "COLLECT COD", "NONE",
+                          "TAKE BACK RETURN"], dtype=object)
+# TPC-H nation -> region (nation.tbl column 2)
+NATION_REGION = np.array([0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0,
+                          0, 1, 2, 3, 4, 2, 3, 3, 1], dtype=np.int64)
 
 LINEITEM_COLUMNS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
                     "l_extendedprice", "l_discount", "l_tax",
                     "l_returnflag", "l_linestatus", "l_shipdate",
-                    "l_commitdate", "l_receiptdate", "l_shipmode"]
+                    "l_commitdate", "l_receiptdate", "l_shipmode",
+                    "l_shipinstruct"]
 ORDERS_COLUMNS = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate",
                   "o_orderpriority", "o_orderstatus", "o_shippriority"]
 CUSTOMER_COLUMNS = ["c_custkey", "c_mktsegment", "c_acctbal",
                     "c_nationkey", "c_name", "c_phone"]
-PART_COLUMNS = ["p_partkey", "p_brand", "p_type", "p_size"]
+PART_COLUMNS = ["p_partkey", "p_brand", "p_type", "p_size", "p_container"]
 SUPPLIER_COLUMNS = ["s_suppkey", "s_nationkey", "s_acctbal"]
-NATION_COLUMNS = ["n_nationkey", "n_name"]
+NATION_COLUMNS = ["n_nationkey", "n_name", "n_regionkey"]
 REGION_COLUMNS = ["r_regionkey", "r_name"]
-PARTSUPP_COLUMNS = ["ps_partkey", "ps_suppkey"]
+PARTSUPP_COLUMNS = ["ps_partkey", "ps_suppkey", "ps_availqty",
+                    "ps_supplycost"]
 
 
 def days(s: str) -> int:
@@ -111,8 +120,7 @@ def _concat(parts, names, strings=None):
 
 
 def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
-    """``LINEITEM_COLUMNS``: the draws of ``_lineitem_chunk`` up to
-    ``l_shipmode``."""
+    """``LINEITEM_COLUMNS``: the draws of ``_lineitem_chunk``."""
     parts = []
     for rng, _start, n, ci, nchunks in _chunks("lineitem", sf, chunk_rows):
         orderkey = rng.integers(1, max(int(1_500_000 * sf), 25) * 4, n
@@ -137,6 +145,7 @@ def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
         returnflag = rng.integers(0, 3, n).astype(np.int32)
         linestatus = rng.integers(0, 2, n).astype(np.int32)
         shipmode = rng.integers(0, 7, n).astype(np.int32)
+        shipinstruct = rng.integers(0, 4, n).astype(np.int32)
         parts.append({
             "l_orderkey": orderkey, "l_partkey": partkey,
             "l_suppkey": suppkey,
@@ -146,31 +155,36 @@ def gen_lineitem(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
             "l_shipdate": shipdate,
             "l_commitdate": (shipdate + commit_delta).astype(np.int32),
             "l_receiptdate": (shipdate + receipt_delta).astype(np.int32),
-            "l_shipmode": shipmode})
+            "l_shipmode": shipmode, "l_shipinstruct": shipinstruct})
     return _concat(parts, LINEITEM_COLUMNS, {
         "l_returnflag": RETURN_FLAGS, "l_linestatus": LINE_STATUS,
-        "l_shipmode": SHIP_MODES})
+        "l_shipmode": SHIP_MODES, "l_shipinstruct": SHIP_INSTRUCT})
 
 
 def gen_part(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
-    """``PART_COLUMNS``: ``p_type`` is ``f"{t1} {t2} {t3}"``; the
-    container's two draws come between it and ``p_brand``."""
+    """``PART_COLUMNS``: ``p_type`` is ``f"{t1} {t2} {t3}"`` and
+    ``p_container`` ``f"{c1} {c2}"``, whose two draws come between
+    ``p_type``'s and ``p_brand``'s."""
     types = np.array([f"{a} {b} {c}" for a in P_TYPES_1 for b in P_TYPES_2
                       for c in P_TYPES_3], dtype=object)
+    containers = np.array([f"{a} {b}" for a in P_CONTAINERS_1
+                           for b in P_CONTAINERS_2], dtype=object)
     parts = []
     for rng, start, n, _ci, _nc in _chunks("part", sf, chunk_rows):
         t1 = rng.integers(0, 6, n)
         t2 = rng.integers(0, 5, n)
         t3 = rng.integers(0, 5, n)
-        rng.integers(0, 5, n)                              # p_container
-        rng.integers(0, 8, n)
+        c1 = rng.integers(0, 5, n)
+        c2 = rng.integers(0, 8, n)
         parts.append({
             "p_partkey": np.arange(start + 1, start + n + 1, dtype=np.int64),
             "p_brand": rng.integers(11, 56, n) - 11,
             "p_type": t1 * 25 + t2 * 5 + t3,
-            "p_size": rng.integers(1, 51, n).astype(np.int32)})
+            "p_size": rng.integers(1, 51, n).astype(np.int32),
+            "p_container": c1 * 8 + c2})
     return _concat(parts, PART_COLUMNS, {"p_type": types,
-                                         "p_brand": BRANDS})
+                                         "p_brand": BRANDS,
+                                         "p_container": containers})
 
 
 def gen_customer(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
@@ -238,7 +252,8 @@ def gen_supplier(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
 def gen_nation(sf: float = 1.0, chunk_rows: int = CHUNK_ROWS) -> dict:
     """``NATION_COLUMNS``: the 25 nations, at every scale."""
     return {"n_nationkey": np.arange(25, dtype=np.int64),
-            "n_name": HostStrings.from_table(NATIONS, np.arange(25))}
+            "n_name": HostStrings.from_table(NATIONS, np.arange(25)),
+            "n_regionkey": NATION_REGION.copy()}
 
 
 def gen_region(sf: float = 1.0, chunk_rows: int = CHUNK_ROWS) -> dict:
@@ -256,7 +271,9 @@ def gen_partsupp(sf: float, chunk_rows: int = CHUNK_ROWS) -> dict:
         parts.append({
             "ps_partkey": np.arange(start, start + n, dtype=np.int64) // 4
             + 1,
-            "ps_suppkey": rng.integers(1, n_supp + 1, n).astype(np.int64)})
+            "ps_suppkey": rng.integers(1, n_supp + 1, n).astype(np.int64),
+            "ps_availqty": rng.integers(1, 10_000, n).astype(np.int32),
+            "ps_supplycost": np.round(rng.random(n) * 1_000 + 1, 2)})
     return _concat(parts, PARTSUPP_COLUMNS)
 
 

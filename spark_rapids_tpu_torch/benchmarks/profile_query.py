@@ -1,5 +1,6 @@
 """Where a query's time goes on the card: one warm run of TPCx-BB q26,
-a TPC-H query (q1, q3, q4, q6, q12-q16, q18, q21, q22), or TPC-DS q91
+a TPC-H query (any of the 22; q5 in its written join order,
+``tpch.QUERY_CONF``), or TPC-DS q91
 (through ``Session.sql``) under
 ``torch.profiler`` (device time by kernel name,
 the run's wall time, the device's busy share of it and the port's kernel
@@ -68,8 +69,10 @@ def profile(query: str, sf: float, top: int) -> dict:
 
     plan_fn = _plan_fn(query, sf)
 
+    conf = tpch.QUERY_CONF.get(query)
+
     def run():
-        collect(apply_overrides(plan_fn()))
+        collect(apply_overrides(plan_fn(), conf))
         torch.cuda.synchronize()
 
     run()

@@ -1,9 +1,8 @@
-"""TPC-H q1, q3, q4, q6, q12-q16, q18, q21 and q22 over in-memory tables
-(the counterpart of spark_rapids_tpu/benchmarks/tpch.py's functions of
-those names, the same plan trees, q18's lowered threshold included), and
-numpy oracles. String columns are ``HostStrings``
-(``benchmarks/datagen.py``); the oracles read their codes and
-dictionaries."""
+"""The 22 TPC-H queries over in-memory tables (the counterpart of
+spark_rapids_tpu/benchmarks/tpch.py's functions of those names, the same
+plan trees, q18's lowered threshold included), and numpy oracles. String
+columns are ``HostStrings`` (``benchmarks/datagen.py``); the oracles read
+their codes and dictionaries."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
@@ -16,11 +15,15 @@ from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.expressions import arithmetic as ar
 from spark_rapids_tpu_torch.expressions import predicates as P
 from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
-                                                           Max, Sum)
+                                                           Max, Min, Sum)
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Literal)
+from spark_rapids_tpu_torch.expressions.cast import Cast
 from spark_rapids_tpu_torch.expressions.conditional import If
-from spark_rapids_tpu_torch.expressions.strings import StartsWith, Substring
+from spark_rapids_tpu_torch.expressions.datetime import Year
+from spark_rapids_tpu_torch.expressions.strings import (Contains, EndsWith,
+                                                        StartsWith,
+                                                        Substring)
 from spark_rapids_tpu_torch.io.hoststrings import HostStrings
 from spark_rapids_tpu_torch.ops.sortkeys import SortKeySpec
 from spark_rapids_tpu_torch.plan import nodes as pn
@@ -45,7 +48,10 @@ _TYPES = {"l_orderkey": dt.INT64, "l_partkey": dt.INT64,
           "s_nationkey": dt.INT64, "s_acctbal": dt.FLOAT64,
           "n_nationkey": dt.INT64, "n_name": dt.STRING,
           "r_regionkey": dt.INT64, "r_name": dt.STRING,
-          "ps_partkey": dt.INT64, "ps_suppkey": dt.INT64}
+          "ps_partkey": dt.INT64, "ps_suppkey": dt.INT64,
+          "l_shipinstruct": dt.STRING, "p_container": dt.STRING,
+          "ps_availqty": dt.INT32, "ps_supplycost": dt.FLOAT64,
+          "n_regionkey": dt.INT64}
 
 Q1_SHIPPED_BY = "1998-09-02"
 Q3_SEGMENT, Q3_DATE = "BUILDING", "1995-03-15"
@@ -63,6 +69,23 @@ Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
 Q16_ACCTBAL = -500.0
 Q18_QUANTITY = 100.0
 Q21_STATUS, Q21_NATION = "F", "SAUDI ARABIA"
+Q5_REGION, Q5_FROM, Q5_TO = "ASIA", "1994-01-01", "1995-01-01"
+Q10_FROM, Q10_TO, Q10_FLAG = "1993-10-01", "1994-01-01", "R"
+Q19_MODES, Q19_INSTRUCT = ("AIR", "REG AIR"), "DELIVER IN PERSON"
+#: q19's arms: brand, container prefix, quantity from, to, greatest size
+Q19_ARMS = (("Brand#12", "SM", 1, 11, 5), ("Brand#23", "MED", 10, 20, 10),
+            ("Brand#34", "LG", 20, 30, 15))
+Q2_SIZE, Q2_TYPE, Q2_REGION = 15, "BRASS", "EUROPE"
+Q17_BRAND, Q17_CONTAINER = "Brand#23", "MED"
+Q7_FROM, Q7_TO, Q7_NATIONS = "1995-01-01", "1996-12-31", ("FRANCE",
+                                                          "GERMANY")
+Q8_TYPE, Q8_REGION, Q8_NATION = "ECONOMY ANODIZED STEEL", "AMERICA", \
+    "BRAZIL"
+Q8_FROM, Q8_TO = "1995-01-01", "1996-12-31"
+Q9_TYPE = "BRASS"
+Q11_NATION, Q11_FRACTION = "GERMANY", 0.0001
+Q20_TYPE, Q20_NATION = "STANDARD", "CANADA"
+Q20_FROM, Q20_TO = "1994-01-01", "1995-01-01"
 #: the tables each query reads, in its function's argument order
 INPUTS = {"q1": ("lineitem",), "q3": ("customer", "orders", "lineitem"),
           "q4": ("orders", "lineitem"), "q6": ("lineitem",),
@@ -71,7 +94,26 @@ INPUTS = {"q1": ("lineitem",), "q3": ("customer", "orders", "lineitem"),
           "q16": ("part", "supplier", "partsupp"),
           "q18": ("lineitem", "orders", "customer"),
           "q21": ("lineitem", "orders", "supplier", "nation"),
-          "q22": ("customer", "orders")}
+          "q22": ("customer", "orders"),
+          "q5": ("customer", "orders", "lineitem", "supplier", "nation",
+                 "region"),
+          "q10": ("customer", "orders", "lineitem", "nation"),
+          "q19": ("lineitem", "part"),
+          "q2": ("part", "supplier", "partsupp", "nation", "region"),
+          "q17": ("lineitem", "part"),
+          "q7": ("lineitem", "orders", "customer", "supplier", "nation"),
+          "q8": ("lineitem", "part", "orders", "customer", "supplier",
+                 "nation", "region"),
+          "q9": ("lineitem", "part", "supplier", "partsupp", "orders",
+                 "nation"),
+          "q11": ("partsupp", "supplier", "nation"),
+          "q20": ("lineitem", "part", "partsupp", "supplier", "nation")}
+
+
+#: a query's conf for ``apply_overrides``: q5's greedy join order (the
+#: reference's) joins customer on the nation key alone, about 7e11 rows
+#: at sf 10, so it runs in its written order
+QUERY_CONF = {"q5": {"rapids.tpu.sql.optimizer.enabled": False}}
 
 
 def ref(i, t):
@@ -435,6 +477,406 @@ def q21(lineitem: Table, orders: Table, supplier: Table, nation: Table
     return pn.LimitNode(100, sort)
 
 
+# -- q5, q10, q19, q2 and q17 -----------------------------------------------
+
+
+def _date_range(i: int, lo: str, hi: str, closed: bool = False):
+    """``lo <= col i < hi`` (``<= hi`` when ``closed``) over a DATE."""
+    upper = P.LessThanOrEqual if closed else P.LessThan
+    return P.And(P.GreaterThanOrEqual(ref(i, dt.DATE), _date(lo)),
+                 upper(ref(i, dt.DATE), _date(hi)))
+
+
+def _revenue(price: int, disc: int):
+    return ar.Multiply(ref(price, dt.FLOAT64),
+                       ar.Subtract(Literal(1.0), ref(disc, dt.FLOAT64)))
+
+
+def q5(customer: Table, orders: Table, lineitem: Table, supplier: Table,
+       nation: Table, region: Table) -> pn.PlanNode:
+    """Local supplier volume: a six-table chain whose last join is on two
+    keys (supplier and nation), revenue per nation of one region."""
+    reg = pn.FilterNode(P.EqualTo(ref(1, dt.STRING), Literal(Q5_REGION)),
+                        _scan(region, ["r_regionkey", "r_name"]))
+    # [n_nationkey, n_name, n_regionkey, r_regionkey, r_name]
+    nr = pn.JoinNode("inner", _scan(nation, ["n_nationkey", "n_name",
+                                             "n_regionkey"]),
+                     reg, [2], [0])
+    # [s_suppkey, s_nationkey, n_nationkey, n_name, ...]
+    snr = pn.JoinNode("inner", _scan(supplier, ["s_suppkey", "s_nationkey"]),
+                      nr, [1], [0])
+    ords = pn.FilterNode(_date_range(2, Q5_FROM, Q5_TO),
+                         _scan(orders, ["o_orderkey", "o_custkey",
+                                        "o_orderdate"]))
+    # [c_custkey, c_nationkey, o_orderkey 2, o_custkey, o_orderdate]
+    co = pn.JoinNode("inner", _scan(customer, ["c_custkey", "c_nationkey"]),
+                     ords, [0], [1])
+    # + [l_orderkey 5, l_suppkey 6, l_extendedprice 7, l_discount 8]
+    col = pn.JoinNode("inner", co,
+                      _scan(lineitem, ["l_orderkey", "l_suppkey",
+                                       "l_extendedprice", "l_discount"]),
+                      [2], [0])
+    # l_suppkey = s_suppkey and c_nationkey = s_nationkey; n_name at 12
+    full = pn.JoinNode("inner", col, snr, [6, 1], [0, 1])
+    proj = pn.ProjectNode([Alias(ref(12, dt.STRING), "n_name"),
+                           Alias(_revenue(7, 8), "rev")], full)
+    agg = pn.AggregateNode(
+        [ref(0, dt.STRING)], [pn.AggCall(Sum(ref(1, dt.FLOAT64)),
+                                         "revenue")],
+        proj, grouping_names=["n_name"])
+    return pn.SortNode([SortKeySpec.spark_default(1, ascending=False)], agg)
+
+
+def q10(customer: Table, orders: Table, lineitem: Table, nation: Table
+        ) -> pn.PlanNode:
+    """Returned item reporting: a four-table join, a group-by on five
+    keys (one a float, two of 1.5M-entry dictionaries), top 20."""
+    ords = pn.FilterNode(_date_range(2, Q10_FROM, Q10_TO),
+                         _scan(orders, ["o_orderkey", "o_custkey",
+                                        "o_orderdate"]))
+    li = pn.FilterNode(
+        P.EqualTo(ref(3, dt.STRING), Literal(Q10_FLAG)),
+        _scan(lineitem, ["l_orderkey", "l_extendedprice", "l_discount",
+                         "l_returnflag"]))
+    # [c... 0-4, o_orderkey 5, o_custkey 6, o_orderdate 7]
+    co = pn.JoinNode("inner", _scan(customer, ["c_custkey", "c_nationkey",
+                                               "c_acctbal", "c_name",
+                                               "c_phone"]),
+                     ords, [0], [1])
+    # + [l_orderkey 8, l_extendedprice 9, l_discount 10, l_returnflag 11]
+    col = pn.JoinNode("inner", co, li, [5], [0])
+    # + [n_nationkey 12, n_name 13]
+    con = pn.JoinNode("inner", col, _scan(nation, ["n_nationkey", "n_name"]),
+                      [1], [0])
+    proj = pn.ProjectNode(
+        [Alias(ref(0, dt.INT64), "c_custkey"),
+         Alias(ref(3, dt.STRING), "c_name"),
+         Alias(ref(2, dt.FLOAT64), "c_acctbal"),
+         Alias(ref(4, dt.STRING), "c_phone"),
+         Alias(ref(13, dt.STRING), "n_name"),
+         Alias(_revenue(9, 10), "rev")], con)
+    agg = pn.AggregateNode(
+        [ref(0, dt.INT64), ref(1, dt.STRING), ref(2, dt.FLOAT64),
+         ref(3, dt.STRING), ref(4, dt.STRING)],
+        [pn.AggCall(Sum(ref(5, dt.FLOAT64)), "revenue")],
+        proj, grouping_names=["c_custkey", "c_name", "c_acctbal",
+                              "c_phone", "n_name"])
+    sort = pn.SortNode([SortKeySpec.spark_default(5, ascending=False)], agg)
+    return pn.LimitNode(20, sort)
+
+
+def q19(lineitem: Table, part: Table) -> pn.PlanNode:
+    """Discounted revenue: a join on the part key whose residual is an OR
+    of three arms over both sides (brand, container prefix, size and
+    quantity bands)."""
+    li = pn.FilterNode(
+        P.And(P.In(ref(4, dt.STRING), [Literal(m) for m in Q19_MODES]),
+              P.EqualTo(ref(5, dt.STRING), Literal(Q19_INSTRUCT))),
+        _scan(lineitem, ["l_partkey", "l_quantity", "l_extendedprice",
+                         "l_discount", "l_shipmode", "l_shipinstruct"]))
+    qty = ref(1, dt.FLOAT64)
+    # the part's columns land at 6..9
+    brand, size, container = ref(7, dt.STRING), ref(8, dt.INT32), \
+        ref(9, dt.STRING)
+
+    def arm(brand_lit, prefix, qlo, qhi, smax):
+        return P.And(
+            P.And(P.EqualTo(brand, Literal(brand_lit)),
+                  StartsWith(container, prefix)),
+            P.And(P.And(P.GreaterThanOrEqual(qty, Literal(float(qlo))),
+                        P.LessThanOrEqual(qty, Literal(float(qhi)))),
+                  P.LessThanOrEqual(size, Literal(smax, dt.INT32))))
+
+    a, b, c = (arm(*x) for x in Q19_ARMS)
+    j = pn.JoinNode("inner", li,
+                    _scan(part, ["p_partkey", "p_brand", "p_size",
+                                 "p_container"]),
+                    [0], [0], condition=P.Or(P.Or(a, b), c))
+    proj = pn.ProjectNode([Alias(_revenue(2, 3), "rev")], j)
+    return pn.AggregateNode(
+        [], [pn.AggCall(Sum(ref(0, dt.FLOAT64)), "revenue")], proj)
+
+
+def q2(part: Table, supplier: Table, partsupp: Table, nation: Table,
+       region: Table) -> pn.PlanNode:
+    """Minimum cost supplier: the least supply cost per part within a
+    region (the correlated MIN decorrelated into a group-by), joined back
+    to the region's offers of the chosen parts, top 100."""
+    prt = pn.FilterNode(
+        P.And(P.EqualTo(ref(2, dt.INT32), Literal(Q2_SIZE, dt.INT32)),
+              EndsWith(ref(1, dt.STRING), Q2_TYPE)),
+        _scan(part, ["p_partkey", "p_type", "p_size"]))
+    reg = pn.FilterNode(P.EqualTo(ref(1, dt.STRING), Literal(Q2_REGION)),
+                        _scan(region, ["r_regionkey", "r_name"]))
+    nr = pn.JoinNode("inner", _scan(nation, ["n_nationkey", "n_name",
+                                             "n_regionkey"]),
+                     reg, [2], [0])
+    # [s_suppkey, s_nationkey, s_acctbal, n_nationkey 3, n_name 4, ...]
+    snr = pn.JoinNode("inner", _scan(supplier, ["s_suppkey", "s_nationkey",
+                                                "s_acctbal"]),
+                      nr, [1], [0])
+    # [ps_partkey, ps_suppkey, ps_supplycost, snr 3..10]
+    ps_eu = pn.JoinNode("inner", _scan(partsupp, ["ps_partkey", "ps_suppkey",
+                                                  "ps_supplycost"]),
+                        snr, [1], [0])
+    min_cost = pn.AggregateNode(
+        [ref(0, dt.INT64)], [pn.AggCall(Min(ref(2, dt.FLOAT64)),
+                                        "min_cost")],
+        ps_eu, grouping_names=["ps_partkey"])
+    # + [p_partkey 11, p_type 12, p_size 13]
+    psp = pn.JoinNode("inner", ps_eu, prt, [0], [0])
+    # + [ps_partkey 14, min_cost 15]
+    pspm = pn.JoinNode("inner", psp, min_cost, [0], [0])
+    best = pn.FilterNode(P.EqualTo(ref(2, dt.FLOAT64), ref(15, dt.FLOAT64)),
+                         pspm)
+    proj = pn.ProjectNode(
+        [Alias(ref(5, dt.FLOAT64), "s_acctbal"),
+         Alias(ref(7, dt.STRING), "n_name"),
+         Alias(ref(0, dt.INT64), "p_partkey"),
+         Alias(ref(12, dt.STRING), "p_type"),
+         Alias(ref(2, dt.FLOAT64), "ps_supplycost")], best)
+    sort = pn.SortNode([SortKeySpec.spark_default(0, ascending=False),
+                        SortKeySpec.spark_default(1),
+                        SortKeySpec.spark_default(2)], proj)
+    return pn.LimitNode(100, sort)
+
+
+def q17(lineitem: Table, part: Table) -> pn.PlanNode:
+    """Small-quantity-order revenue: the average quantity per part over
+    all of lineitem, joined back to the lines of the chosen parts."""
+    prt = pn.FilterNode(
+        P.And(P.EqualTo(ref(1, dt.STRING), Literal(Q17_BRAND)),
+              StartsWith(ref(2, dt.STRING), Q17_CONTAINER)),
+        _scan(part, ["p_partkey", "p_brand", "p_container"]))
+
+    def li():
+        return _scan(lineitem, ["l_partkey", "l_quantity",
+                                "l_extendedprice"])
+
+    per_part_avg = pn.AggregateNode(
+        [ref(0, dt.INT64)], [pn.AggCall(Average(ref(1, dt.FLOAT64)),
+                                        "avg_qty")],
+        li(), grouping_names=["l_partkey"])
+    # [l... 0-2, p_partkey 3, p_brand 4, p_container 5]
+    lp = pn.JoinNode("inner", li(), prt, [0], [0])
+    # + [l_partkey 6, avg_qty 7]
+    lpa = pn.JoinNode("inner", lp, per_part_avg, [0], [0])
+    filt = pn.FilterNode(
+        P.LessThan(ref(1, dt.FLOAT64),
+                   ar.Multiply(Literal(0.2), ref(7, dt.FLOAT64))), lpa)
+    agg = pn.AggregateNode(
+        [], [pn.AggCall(Sum(ref(2, dt.FLOAT64)), "sum_rev")], filt)
+    return pn.ProjectNode(
+        [Alias(ar.Divide(ref(0, dt.FLOAT64), Literal(7.0)), "avg_yearly")],
+        agg)
+
+
+# -- q7, q8, q9, q11 and q20: Year and Cast ---------------------------------
+
+
+def q7(lineitem: Table, orders: Table, customer: Table, supplier: Table,
+       nation: Table) -> pn.PlanNode:
+    """Volume shipping: revenue between two nations either way, per
+    supplier nation, customer nation and year of shipping."""
+    def with_nation(table, cols):
+        return pn.JoinNode("inner", _scan(table, cols),
+                           _scan(nation, ["n_nationkey", "n_name"]),
+                           [1], [0])
+
+    # [s_suppkey, s_nationkey, n_nationkey, supp_nation 3]
+    sn = with_nation(supplier, ["s_suppkey", "s_nationkey"])
+    # [c_custkey, c_nationkey, n_nationkey, cust_nation 3]
+    cn = with_nation(customer, ["c_custkey", "c_nationkey"])
+    li = pn.FilterNode(
+        _date_range(4, Q7_FROM, Q7_TO, closed=True),
+        _scan(lineitem, ["l_orderkey", "l_suppkey", "l_extendedprice",
+                         "l_discount", "l_shipdate"]))
+    # + [o_orderkey 5, o_custkey 6]
+    lo = pn.JoinNode("inner", li, _scan(orders, ["o_orderkey", "o_custkey"]),
+                     [0], [0])
+    los = pn.JoinNode("inner", lo, sn, [1], [0])        # supp_nation 10
+    losc = pn.JoinNode("inner", los, cn, [6], [0])      # cust_nation 14
+    a, b = Q7_NATIONS
+
+    def pair(x, y):
+        return P.And(P.EqualTo(ref(10, dt.STRING), Literal(x)),
+                     P.EqualTo(ref(14, dt.STRING), Literal(y)))
+
+    filt = pn.FilterNode(P.Or(pair(a, b), pair(b, a)), losc)
+    proj = pn.ProjectNode(
+        [Alias(ref(10, dt.STRING), "supp_nation"),
+         Alias(ref(14, dt.STRING), "cust_nation"),
+         Alias(Year(ref(4, dt.DATE)), "l_year"),
+         Alias(_revenue(2, 3), "volume")], filt)
+    agg = pn.AggregateNode(
+        [ref(0, dt.STRING), ref(1, dt.STRING), ref(2, dt.INT32)],
+        [pn.AggCall(Sum(ref(3, dt.FLOAT64)), "revenue")],
+        proj, grouping_names=["supp_nation", "cust_nation", "l_year"])
+    return pn.SortNode([SortKeySpec.spark_default(0),
+                        SortKeySpec.spark_default(1),
+                        SortKeySpec.spark_default(2)], agg)
+
+
+def q8(lineitem: Table, part: Table, orders: Table, customer: Table,
+       supplier: Table, nation: Table, region: Table) -> pn.PlanNode:
+    """National market share: one nation's share of a region's revenue
+    on one part type, per year (a conditional sum over a ratio)."""
+    prt = pn.FilterNode(P.EqualTo(ref(1, dt.STRING), Literal(Q8_TYPE)),
+                        _scan(part, ["p_partkey", "p_type"]))
+    # + [p_partkey 5, p_type 6]
+    lp = pn.JoinNode("inner",
+                     _scan(lineitem, ["l_orderkey", "l_partkey", "l_suppkey",
+                                      "l_extendedprice", "l_discount"]),
+                     prt, [1], [0])
+    ords = pn.FilterNode(_date_range(2, Q8_FROM, Q8_TO, closed=True),
+                         _scan(orders, ["o_orderkey", "o_custkey",
+                                        "o_orderdate"]))
+    lpo = pn.JoinNode("inner", lp, ords, [0], [0])      # o_orderdate 9
+    # + [c_custkey 10, c_nationkey 11]
+    lpoc = pn.JoinNode("inner", lpo,
+                       _scan(customer, ["c_custkey", "c_nationkey"]),
+                       [8], [0])
+    reg = pn.FilterNode(P.EqualTo(ref(1, dt.STRING), Literal(Q8_REGION)),
+                        _scan(region, ["r_regionkey", "r_name"]))
+    n1r = pn.JoinNode("inner", _scan(nation, ["n_nationkey", "n_regionkey"]),
+                      reg, [1], [0])
+    lpocn = pn.JoinNode("inner", lpoc, n1r, [11], [0])
+    sn = pn.JoinNode("inner", _scan(supplier, ["s_suppkey", "s_nationkey"]),
+                     _scan(nation, ["n_nationkey", "n_name"]), [1], [0])
+    # + [s_suppkey 16, s_nationkey 17, n_nationkey 18, supp_nation 19]
+    full = pn.JoinNode("inner", lpocn, sn, [2], [0])
+    vol = _revenue(3, 4)
+    nation_vol = If(P.EqualTo(ref(19, dt.STRING), Literal(Q8_NATION)),
+                    vol, Literal(0.0))
+    proj = pn.ProjectNode(
+        [Alias(Year(ref(9, dt.DATE)), "o_year"), Alias(vol, "volume"),
+         Alias(nation_vol, "brazil_volume")], full)
+    agg = pn.AggregateNode(
+        [ref(0, dt.INT32)],
+        [pn.AggCall(Sum(ref(2, dt.FLOAT64)), "brazil"),
+         pn.AggCall(Sum(ref(1, dt.FLOAT64)), "total")],
+        proj, grouping_names=["o_year"])
+    share = pn.ProjectNode(
+        [Alias(ref(0, dt.INT32), "o_year"),
+         Alias(ar.Divide(ref(1, dt.FLOAT64), ref(2, dt.FLOAT64)),
+               "mkt_share")], agg)
+    return pn.SortNode([SortKeySpec.spark_default(0)], share)
+
+
+def q9(lineitem: Table, part: Table, supplier: Table, partsupp: Table,
+       orders: Table, nation: Table) -> pn.PlanNode:
+    """Product type profit: a five-way join (one on two keys), profit per
+    nation and year of order."""
+    prt = pn.FilterNode(Contains(ref(1, dt.STRING), Q9_TYPE),
+                        _scan(part, ["p_partkey", "p_type"]))
+    # + [p_partkey 6, p_type 7]
+    lp = pn.JoinNode("inner",
+                     _scan(lineitem, ["l_orderkey", "l_partkey", "l_suppkey",
+                                      "l_quantity", "l_extendedprice",
+                                      "l_discount"]),
+                     prt, [1], [0])
+    # + [s_suppkey 8, s_nationkey 9]
+    lps = pn.JoinNode("inner", lp,
+                      _scan(supplier, ["s_suppkey", "s_nationkey"]),
+                      [2], [0])
+    # + [ps_partkey 10, ps_suppkey 11, ps_supplycost 12]
+    lpsp = pn.JoinNode("inner", lps,
+                       _scan(partsupp, ["ps_partkey", "ps_suppkey",
+                                        "ps_supplycost"]),
+                       [1, 2], [0, 1])
+    # + [o_orderkey 13, o_orderdate 14]
+    lpspo = pn.JoinNode("inner", lpsp,
+                        _scan(orders, ["o_orderkey", "o_orderdate"]),
+                        [0], [0])
+    # + [n_nationkey 15, n_name 16]
+    full = pn.JoinNode("inner", lpspo,
+                       _scan(nation, ["n_nationkey", "n_name"]), [9], [0])
+    profit = ar.Subtract(_revenue(4, 5),
+                         ar.Multiply(ref(12, dt.FLOAT64),
+                                     ref(3, dt.FLOAT64)))
+    proj = pn.ProjectNode(
+        [Alias(ref(16, dt.STRING), "nation"),
+         Alias(Year(ref(14, dt.DATE)), "o_year"),
+         Alias(profit, "amount")], full)
+    agg = pn.AggregateNode(
+        [ref(0, dt.STRING), ref(1, dt.INT32)],
+        [pn.AggCall(Sum(ref(2, dt.FLOAT64)), "sum_profit")],
+        proj, grouping_names=["nation", "o_year"])
+    return pn.SortNode([SortKeySpec.spark_default(0),
+                        SortKeySpec.spark_default(1, ascending=False)], agg)
+
+
+def q11(partsupp: Table, supplier: Table, nation: Table,
+        fraction: float = Q11_FRACTION) -> pn.PlanNode:
+    """Important stock: the stock value of each part held by one nation's
+    suppliers, above ``fraction`` of the total (the scalar subquery
+    joined on lit(1)). The reference's literal is TPC-H's fraction at
+    sf 1; the benchmark scales it as 0.0001 / sf, and at sf 10 the
+    literal keeps no part."""
+    nat = pn.FilterNode(P.EqualTo(ref(1, dt.STRING), Literal(Q11_NATION)),
+                        _scan(nation, ["n_nationkey", "n_name"]))
+    sn = pn.JoinNode("inner", _scan(supplier, ["s_suppkey", "s_nationkey"]),
+                     nat, [1], [0])
+    # [ps... 0-3, s_suppkey 4, s_nationkey 5, n_nationkey 6, n_name 7]
+    psn = pn.JoinNode("inner",
+                      _scan(partsupp, ["ps_partkey", "ps_suppkey",
+                                       "ps_availqty", "ps_supplycost"]),
+                      sn, [1], [0])
+    value = ar.Multiply(ref(3, dt.FLOAT64),
+                        Cast(ref(2, dt.INT32), dt.FLOAT64))
+    vals = pn.ProjectNode([Alias(ref(0, dt.INT64), "ps_partkey"),
+                           Alias(value, "value")], psn)
+    per_part = pn.AggregateNode(
+        [ref(0, dt.INT64)], [pn.AggCall(Sum(ref(1, dt.FLOAT64)), "value")],
+        vals, grouping_names=["ps_partkey"])
+    total = pn.AggregateNode(
+        [], [pn.AggCall(Sum(ref(1, dt.FLOAT64)), "total")], vals)
+    thresh = pn.ProjectNode(
+        [Alias(ar.Multiply(ref(0, dt.FLOAT64), Literal(fraction)),
+               "threshold"), Alias(Literal(1, dt.INT64), "one")], total)
+    # [ps_partkey, value, one 2, threshold 3, one 4]
+    j = pn.JoinNode("inner", _lit_one(per_part, ["ps_partkey", "value"]),
+                    thresh, [2], [1])
+    filt = pn.FilterNode(P.GreaterThan(ref(1, dt.FLOAT64),
+                                       ref(3, dt.FLOAT64)), j)
+    proj = pn.ProjectNode([Alias(ref(0, dt.INT64), "ps_partkey"),
+                           Alias(ref(1, dt.FLOAT64), "value")], filt)
+    return pn.SortNode([SortKeySpec.spark_default(1, ascending=False)], proj)
+
+
+def q20(lineitem: Table, part: Table, partsupp: Table, supplier: Table,
+        nation: Table) -> pn.PlanNode:
+    """Potential part promotion: one nation's suppliers whose stock of a
+    part type exceeds half of a year's shipments (two semi joins and a
+    join on two keys)."""
+    prt = pn.FilterNode(StartsWith(ref(1, dt.STRING), Q20_TYPE),
+                        _scan(part, ["p_partkey", "p_type"]))
+    li = pn.FilterNode(
+        _date_range(3, Q20_FROM, Q20_TO),
+        _scan(lineitem, ["l_partkey", "l_suppkey", "l_quantity",
+                         "l_shipdate"]))
+    shipped = pn.AggregateNode(
+        [ref(0, dt.INT64), ref(1, dt.INT64)],
+        [pn.AggCall(Sum(ref(2, dt.FLOAT64)), "qty")],
+        li, grouping_names=["l_partkey", "l_suppkey"])
+    ps_f = pn.JoinNode("left_semi",
+                       _scan(partsupp, ["ps_partkey", "ps_suppkey",
+                                        "ps_availqty"]),
+                       prt, [0], [0])
+    # + [l_partkey 3, l_suppkey 4, qty 5]
+    psq = pn.JoinNode("inner", ps_f, shipped, [0, 1], [0, 1])
+    over = pn.FilterNode(
+        P.GreaterThan(Cast(ref(2, dt.INT32), dt.FLOAT64),
+                      ar.Multiply(Literal(0.5), ref(5, dt.FLOAT64))), psq)
+    nat = pn.FilterNode(P.EqualTo(ref(1, dt.STRING), Literal(Q20_NATION)),
+                        _scan(nation, ["n_nationkey", "n_name"]))
+    sn = pn.JoinNode("inner", _scan(supplier, ["s_suppkey", "s_nationkey"]),
+                     nat, [1], [0])
+    good = pn.JoinNode("left_semi", sn, over, [0], [1])
+    proj = pn.ProjectNode([Alias(ref(0, dt.INT64), "s_suppkey")], good)
+    return pn.SortNode([SortKeySpec.spark_default(0)], proj)
+
+
 def q14_numpy(lineitem: Table, part: Table) -> Table:
     """q14 in plain numpy: ``promo_revenue``, None when the month has no
     matched revenue."""
@@ -741,3 +1183,333 @@ def q21_numpy(lineitem: Table, orders: Table, supplier: Table,
     s_key, numwait = np.unique(sk[rows], return_counts=True)
     top = np.lexsort((s_key, -numwait))[:100]
     return {"s_suppkey": s_key[top], "numwait": numwait[top].astype(np.int64)}
+
+
+# -- oracles of q5, q10, q19, q2, q17, q7, q8, q9, q11 and q20 ---------------
+
+
+def _at(table: np.ndarray, keys: np.ndarray, fill=-1) -> np.ndarray:
+    """``table[keys]``, ``fill`` where a key is past the table's end."""
+    inside = keys < len(table)
+    out = np.full(len(keys), fill, dtype=table.dtype)
+    out[inside] = table[keys[inside]]
+    return out
+
+
+def _nation_of(nation: Table, names) -> np.ndarray:
+    """Per nation key: whether its name is one of ``names``."""
+    return _lookup(nation["n_nationkey"], _is(nation["n_name"], names),
+                   False)
+
+
+def _in_region(nation: Table, region: Table, name: str) -> np.ndarray:
+    """Per nation key: whether the nation lies in region ``name``."""
+    keys = region["r_regionkey"][_is(region["r_name"], [name])]
+    return _lookup(nation["n_nationkey"],
+                   _member(nation["n_regionkey"], keys), False)
+
+
+def _names(col: HostStrings, rows: np.ndarray) -> np.ndarray:
+    return col.dictionary[col.codes[rows]]
+
+
+def _sums_by(keys: np.ndarray, values: np.ndarray):
+    """(the distinct non-negative keys in order, the sum of ``values``
+    per key), by one sort."""
+    order = np.argsort(keys, kind="stable")
+    k, runs = _runs(keys[order])
+    starts = np.r_[0, np.cumsum(runs)[:-1]].astype(np.int64)
+    sums = np.add.reduceat(values[order], starts) if len(k) else \
+        np.zeros(0)
+    return k, sums
+
+
+def _search(sorted_keys: np.ndarray, needles: np.ndarray) -> Tuple:
+    """(left, right) ``np.searchsorted`` of each needle, the needles
+    visited in sorted order (a random order misses the cache on every
+    probe: minutes at sf 10)."""
+    order = np.argsort(needles)
+    lo = np.empty(len(needles), dtype=np.int64)
+    hi = np.empty(len(needles), dtype=np.int64)
+    lo[order] = np.searchsorted(sorted_keys, needles[order], "left")
+    hi[order] = np.searchsorted(sorted_keys, needles[order], "right")
+    return lo, hi
+
+
+def _year(days_: np.ndarray) -> np.ndarray:
+    return (days_.astype("datetime64[D]").astype("datetime64[Y]")
+            .astype(np.int64) + 1970).astype(np.int32)
+
+
+def _order_rows(orders: Table, keys: np.ndarray, live=None) -> np.ndarray:
+    """Per order key of ``keys``: its row in orders (keys are unique),
+    -1 where there is none or the row is not ``live``."""
+    okey = orders["o_orderkey"]
+    rows = np.arange(len(okey))
+    if live is not None:
+        okey, rows = okey[live], rows[live]
+    return _at(_lookup(okey, rows, -1), keys)
+
+
+def q5_numpy(customer: Table, orders: Table, lineitem: Table,
+             supplier: Table, nation: Table, region: Table) -> Table:
+    """q5 in plain numpy: keys of orders, customers and suppliers are
+    unique, so each line finds its order, customer and supplier."""
+    d = orders["o_orderdate"]
+    row = _order_rows(orders, lineitem["l_orderkey"],
+                      (d >= days(Q5_FROM)) & (d < days(Q5_TO)))
+    cust_nat = _lookup(customer["c_custkey"], customer["c_nationkey"], -1)
+    c_nat = np.where(row >= 0, _at(cust_nat, orders["o_custkey"][row]), -1)
+    s_nat = _at(_lookup(supplier["s_suppkey"], supplier["s_nationkey"], -1),
+                lineitem["l_suppkey"])
+    asia = _in_region(nation, region, Q5_REGION)
+    keep = (row >= 0) & (c_nat >= 0) & (c_nat == s_nat) & \
+        _at(asia, np.maximum(c_nat, 0), False)
+    rev = lineitem["l_extendedprice"][keep] * \
+        (1.0 - lineitem["l_discount"][keep])
+    nat, total = _sums_by(c_nat[keep], rev)
+    name_row = _lookup(nation["n_nationkey"],
+                       np.arange(len(nation["n_nationkey"])), -1)
+    top = np.argsort(-total, kind="stable")
+    return {"n_name": _names(nation["n_name"], name_row[nat[top]]),
+            "revenue": total[top]}
+
+
+def q10_numpy(customer: Table, orders: Table, lineitem: Table,
+              nation: Table) -> Table:
+    """q10 in plain numpy: revenue of returned lines per customer (the
+    five keys are one customer's), top 20."""
+    d = orders["o_orderdate"]
+    live = _is(lineitem["l_returnflag"], [Q10_FLAG])
+    row = _order_rows(orders, lineitem["l_orderkey"][live],
+                      (d >= days(Q10_FROM)) & (d < days(Q10_TO)))
+    hit = row >= 0
+    rev = (lineitem["l_extendedprice"][live] *
+           (1.0 - lineitem["l_discount"][live]))[hit]
+    cust_row = _lookup(customer["c_custkey"],
+                       np.arange(len(customer["c_custkey"])), -1)
+    crow = _at(cust_row, orders["o_custkey"][row[hit]])
+    rev = rev[crow >= 0]
+    crow = crow[crow >= 0]
+    rows, total = _sums_by(crow, rev)
+    top = rows[np.argsort(-total, kind="stable")[:20]]
+    total = total[np.argsort(-total, kind="stable")[:20]]
+    name_row = _lookup(nation["n_nationkey"],
+                       np.arange(len(nation["n_nationkey"])), -1)
+    return {"c_custkey": customer["c_custkey"][top],
+            "c_name": _names(customer["c_name"], top),
+            "c_acctbal": customer["c_acctbal"][top],
+            "c_phone": _names(customer["c_phone"], top),
+            "n_name": _names(nation["n_name"],
+                             name_row[customer["c_nationkey"][top]]),
+            "revenue": total}
+
+
+def q19_numpy(lineitem: Table, part: Table) -> Table:
+    """q19 in plain numpy: one row, None when no line passes."""
+    live = _is(lineitem["l_shipmode"], Q19_MODES) & \
+        _is(lineitem["l_shipinstruct"], [Q19_INSTRUCT])
+    prow = _at(_lookup(part["p_partkey"], np.arange(len(part["p_partkey"])),
+                       -1), lineitem["l_partkey"])
+    live &= prow >= 0
+    prow = np.maximum(prow, 0)
+    qty = lineitem["l_quantity"]
+    ok = np.zeros(len(qty), dtype=bool)
+    for brand, prefix, qlo, qhi, smax in Q19_ARMS:
+        b = _is(part["p_brand"], [brand])[prow]
+        c = _entries(part["p_container"],
+                     lambda e, p=prefix: np.char.startswith(e, p))[prow]
+        ok |= b & c & (qty >= qlo) & (qty <= qhi) & \
+            (part["p_size"][prow] <= smax)
+    keep = live & ok
+    if not keep.any():
+        return {"revenue": np.array([None], dtype=object)}
+    return {"revenue": np.array([(lineitem["l_extendedprice"][keep] *
+                                  (1.0 - lineitem["l_discount"][keep])
+                                  ).sum()])}
+
+
+def q2_numpy(part: Table, supplier: Table, partsupp: Table, nation: Table,
+             region: Table) -> Table:
+    """q2 in plain numpy: the region's offers, the least cost per part,
+    the offers of the chosen parts at that cost."""
+    srow = _at(_lookup(supplier["s_suppkey"],
+                       np.arange(len(supplier["s_suppkey"])), -1),
+               partsupp["ps_suppkey"])
+    eu = _in_region(nation, region, Q2_REGION)
+    s_nat = np.where(srow >= 0, supplier["s_nationkey"][np.maximum(srow, 0)],
+                     -1)
+    offer = (srow >= 0) & _at(eu, np.maximum(s_nat, 0), False) & (s_nat >= 0)
+    pk, cost = partsupp["ps_partkey"][offer], \
+        partsupp["ps_supplycost"][offer]
+    least = np.full(int(pk.max(initial=0)) + 1, np.inf)
+    np.minimum.at(least, pk, cost)
+    chosen = (part["p_size"] == Q2_SIZE) & _entries(
+        part["p_type"], lambda e: np.char.endswith(e, Q2_TYPE))
+    prow = _at(_lookup(part["p_partkey"][chosen], np.flatnonzero(chosen),
+                       -1), pk)
+    keep = (prow >= 0) & (cost == least[pk])
+    rows = np.flatnonzero(offer)[keep]
+    sr = srow[rows]
+    acct = supplier["s_acctbal"][sr]
+    name_row = _lookup(nation["n_nationkey"],
+                       np.arange(len(nation["n_nationkey"])), -1)
+    n_name = _names(nation["n_name"], name_row[supplier["s_nationkey"][sr]])
+    p_key = partsupp["ps_partkey"][rows]
+    n_code = nation["n_name"].codes[name_row[supplier["s_nationkey"][sr]]]
+    top = np.lexsort((p_key, n_code, -acct))[:100]
+    return {"s_acctbal": acct[top], "n_name": n_name[top],
+            "p_partkey": p_key[top],
+            "p_type": _names(part["p_type"], prow[keep][top]),
+            "ps_supplycost": partsupp["ps_supplycost"][rows][top]}
+
+
+def q17_numpy(lineitem: Table, part: Table) -> Table:
+    """q17 in plain numpy: one row, None when no line passes."""
+    pk, qty = lineitem["l_partkey"], lineitem["l_quantity"]
+    avg = np.bincount(pk, weights=qty) / np.maximum(np.bincount(pk), 1)
+    chosen = _is(part["p_brand"], [Q17_BRAND]) & _entries(
+        part["p_container"],
+        lambda e: np.char.startswith(e, Q17_CONTAINER))
+    keep = _member(pk, part["p_partkey"][chosen]) & (qty < avg[pk] * 0.2)
+    if not keep.any():
+        return {"avg_yearly": np.array([None], dtype=object)}
+    return {"avg_yearly": np.array(
+        [lineitem["l_extendedprice"][keep].sum() / 7.0])}
+
+
+def q7_numpy(lineitem: Table, orders: Table, customer: Table,
+             supplier: Table, nation: Table) -> Table:
+    """q7 in plain numpy: per (supplier nation, customer nation, year)."""
+    d = lineitem["l_shipdate"]
+    live = (d >= days(Q7_FROM)) & (d <= days(Q7_TO))
+    row = _order_rows(orders, lineitem["l_orderkey"][live])
+    c_nat = np.where(row >= 0, _at(_lookup(customer["c_custkey"],
+                                           customer["c_nationkey"], -1),
+                                   orders["o_custkey"][np.maximum(row, 0)]),
+                     -1)
+    s_nat = _at(_lookup(supplier["s_suppkey"], supplier["s_nationkey"], -1),
+                lineitem["l_suppkey"][live])
+    code = _lookup(nation["n_nationkey"], nation["n_name"].codes, -1)
+    names = nation["n_name"].dictionary
+    sc, cc = _at(code, np.maximum(s_nat, 0)), _at(code, np.maximum(c_nat, 0))
+    sname, cname = names[np.maximum(sc, 0)], names[np.maximum(cc, 0)]
+    a, b = Q7_NATIONS
+    keep = (row >= 0) & (c_nat >= 0) & (s_nat >= 0) & (
+        ((sname == a) & (cname == b)) | ((sname == b) & (cname == a)))
+    vol = (lineitem["l_extendedprice"][live] *
+           (1.0 - lineitem["l_discount"][live]))[keep]
+    year = _year(d[live][keep]).astype(np.int64)
+    group = (sc[keep].astype(np.int64) * 64 + cc[keep]) * 4096 + year - 1900
+    g, total = _sums_by(group, vol)
+    return {"supp_nation": names[g // 4096 // 64],
+            "cust_nation": names[g // 4096 % 64],
+            "l_year": (g % 4096 + 1900).astype(np.int32),
+            "revenue": total}
+
+
+def q8_numpy(lineitem: Table, part: Table, orders: Table, customer: Table,
+             supplier: Table, nation: Table, region: Table) -> Table:
+    """q8 in plain numpy: per order year, the nation's revenue over the
+    region's, on one part type."""
+    chosen = _is(part["p_type"], [Q8_TYPE])
+    live = _member(lineitem["l_partkey"], part["p_partkey"][chosen])
+    od = orders["o_orderdate"]
+    row = _order_rows(orders, lineitem["l_orderkey"][live],
+                      (od >= days(Q8_FROM)) & (od <= days(Q8_TO)))
+    c_nat = np.where(row >= 0, _at(_lookup(customer["c_custkey"],
+                                           customer["c_nationkey"], -1),
+                                   orders["o_custkey"][np.maximum(row, 0)]),
+                     -1)
+    america = _in_region(nation, region, Q8_REGION)
+    s_nat = _at(_lookup(supplier["s_suppkey"], supplier["s_nationkey"], -1),
+                lineitem["l_suppkey"][live])
+    keep = (row >= 0) & (c_nat >= 0) & (s_nat >= 0) & \
+        _at(america, np.maximum(c_nat, 0), False)
+    vol = (lineitem["l_extendedprice"][live] *
+           (1.0 - lineitem["l_discount"][live]))[keep]
+    mine = _nation_of(nation, [Q8_NATION])[s_nat[keep]]
+    year = _year(od[row[keep]]).astype(np.int64)
+    years, total = _sums_by(year, vol)
+    _, brazil = _sums_by(year, np.where(mine, vol, 0.0))
+    return {"o_year": years.astype(np.int32), "mkt_share": brazil / total}
+
+
+def q9_numpy(lineitem: Table, part: Table, supplier: Table,
+             partsupp: Table, orders: Table, nation: Table) -> Table:
+    """q9 in plain numpy: a (part, supplier) pair may have several
+    partsupp rows, and each one is a joined row."""
+    chosen = _entries(part["p_type"], lambda e: np.char.find(e, Q9_TYPE)
+                      >= 0)
+    live = np.flatnonzero(_member(lineitem["l_partkey"],
+                                  part["p_partkey"][chosen]))
+    s_nat = _at(_lookup(supplier["s_suppkey"], supplier["s_nationkey"], -1),
+                lineitem["l_suppkey"][live])
+    live, s_nat = live[s_nat >= 0], s_nat[s_nat >= 0]
+    span = int(max(partsupp["ps_suppkey"].max(initial=0),
+                   lineitem["l_suppkey"].max(initial=0))) + 1
+    ps_key = partsupp["ps_partkey"] * span + partsupp["ps_suppkey"]
+    order = np.argsort(ps_key, kind="stable")
+    sorted_key = ps_key[order]
+    want = lineitem["l_partkey"][live] * span + lineitem["l_suppkey"][live]
+    lo, hi = _search(sorted_key, want)
+    n = hi - lo
+    line = np.repeat(live, n)
+    nat = np.repeat(s_nat, n)
+    ps_row = order[np.repeat(lo, n) + (np.arange(n.sum()) -
+                                       np.repeat(np.cumsum(n) - n, n))]
+    row = _order_rows(orders, lineitem["l_orderkey"][line])
+    line, nat, ps_row, row = (x[row >= 0] for x in (line, nat, ps_row, row))
+    amount = lineitem["l_extendedprice"][line] * \
+        (1.0 - lineitem["l_discount"][line]) - \
+        partsupp["ps_supplycost"][ps_row] * lineitem["l_quantity"][line]
+    code = _lookup(nation["n_nationkey"], nation["n_name"].codes, -1)[nat]
+    year = _year(orders["o_orderdate"][row]).astype(np.int64)
+    g, total = _sums_by(code.astype(np.int64) * 4096 + (5000 - year),
+                        amount)
+    return {"nation": nation["n_name"].dictionary[g // 4096],
+            "o_year": (5000 - g % 4096).astype(np.int32),
+            "sum_profit": total}
+
+
+def q11_numpy(partsupp: Table, supplier: Table, nation: Table,
+              fraction: float = Q11_FRACTION) -> Table:
+    """q11 in plain numpy: per part, the stock value held by the nation's
+    suppliers, where it passes ``fraction`` of the total."""
+    mine = _nation_of(nation, [Q11_NATION])
+    s_nat = _at(_lookup(supplier["s_suppkey"], supplier["s_nationkey"], -1),
+                partsupp["ps_suppkey"])
+    keep = (s_nat >= 0) & _at(mine, np.maximum(s_nat, 0), False)
+    value = partsupp["ps_supplycost"][keep] * \
+        partsupp["ps_availqty"][keep].astype(np.float64)
+    parts, per = _sums_by(partsupp["ps_partkey"][keep], value)
+    big = per > value.sum() * fraction
+    top = np.argsort(-per[big], kind="stable")
+    return {"ps_partkey": parts[big][top], "value": per[big][top]}
+
+
+def q20_numpy(lineitem: Table, part: Table, partsupp: Table,
+              supplier: Table, nation: Table) -> Table:
+    """q20 in plain numpy: a year's shipped quantity per (part, supplier)
+    by one sort; the offers of the part type above half of it."""
+    d = lineitem["l_shipdate"]
+    live = (d >= days(Q20_FROM)) & (d < days(Q20_TO))
+    span = int(max(partsupp["ps_suppkey"].max(initial=0),
+                   lineitem["l_suppkey"].max(initial=0))) + 1
+    pairs, qty = _sums_by(lineitem["l_partkey"][live] * span +
+                          lineitem["l_suppkey"][live],
+                          lineitem["l_quantity"][live])
+    chosen = _entries(part["p_type"],
+                      lambda e: np.char.startswith(e, Q20_TYPE))
+    ps_pair = partsupp["ps_partkey"] * span + partsupp["ps_suppkey"]
+    at = _search(pairs, ps_pair)[0]
+    found = (at < len(pairs)) & (pairs[np.minimum(at, len(pairs) - 1)]
+                                 == ps_pair)
+    found &= _member(partsupp["ps_partkey"], part["p_partkey"][chosen])
+    over = found & (partsupp["ps_availqty"].astype(np.float64) >
+                    qty[np.minimum(at, len(qty) - 1)] * 0.5)
+    keys = partsupp["ps_suppkey"][over]
+    mine = _nation_of(nation, [Q20_NATION])
+    s_nat = supplier["s_nationkey"]
+    ok = _at(mine, s_nat, False) & _member(supplier["s_suppkey"], keys)
+    return {"s_suppkey": np.sort(supplier["s_suppkey"][ok])}

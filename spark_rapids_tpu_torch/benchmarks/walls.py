@@ -12,9 +12,10 @@ come from ``profile_query._plan_fn`` of the tree being timed, which
 every tree of the port has had since TPC-H q14 and q22 (q91, through
 ``Session.sql``, since the SQL front end; q1, q3, q6 and q12 since
 host-encoded strings; q4, q13, q15, q16, q18 and q21 since the outer,
-semi and full joins). ``--query q5lite`` times the q5lite step (a
-fused filter and a group-by of 4M rows over 65,536 keys) on data already
-on the card. Prints one JSON line per query with the card's name and
+semi and full joins; the other ten TPC-H queries since the date and
+cast expressions, q5 in its written join order, ``tpch.QUERY_CONF``).
+``--query q5lite`` times the q5lite step (a fused filter and a group-by
+of 4M rows over 65,536 keys) on data already on the card. Prints one JSON line per query with the card's name and
 power limit. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -36,12 +37,15 @@ def _runner(query: str, sf: float):
 
         data = [torch.from_numpy(a).cuda() for a in q5lite.gen_data()]
         return lambda: q5lite.step(*data)
+    from spark_rapids_tpu_torch.benchmarks import tpch
     from spark_rapids_tpu_torch.benchmarks.profile_query import _plan_fn
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
     plan_fn = _plan_fn(query, sf)
-    return lambda: collect(apply_overrides(plan_fn(), device="cuda"))
+    # a tree older than the date and cast expressions has no QUERY_CONF
+    conf = getattr(tpch, "QUERY_CONF", {}).get(query)
+    return lambda: collect(apply_overrides(plan_fn(), conf, device="cuda"))
 
 
 def main() -> int:

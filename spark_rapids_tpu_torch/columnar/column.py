@@ -36,14 +36,61 @@ class Scalar:
         return f"Scalar({self.dtype}, {self.value})"
 
 
+class HostRange:
+    """The (min, max) over the valid rows of an uploaded column (the
+    reference's upload-time ``Column.stats``), reduced on the first
+    ``get`` only: one reduction of the column's tensors and one 24-byte
+    read (on the card a host pass over each 2M-row slice cost
+    milliseconds a key column). None when no row is valid."""
+
+    __slots__ = ("_data", "_validity", "_range")
+
+    def __init__(self, data: Optional[torch.Tensor],
+                 validity: Optional[torch.Tensor] = None):
+        self._data, self._validity = data, validity
+        self._range: Optional[Tuple[int, int]] = None
+
+    @staticmethod
+    def known(lo: int, hi: int) -> "HostRange":
+        """A range known without a pass over the rows."""
+        r = HostRange(None)
+        r._range = (int(lo), int(hi))
+        return r
+
+    def get(self) -> Optional[Tuple[int, int]]:
+        data, validity = self._data, self._validity
+        if data is not None and data.numel():
+            if validity is None:
+                lo, hi = torch.aminmax(data)
+                some = torch.ones((), dtype=data.dtype, device=data.device)
+            else:
+                info = torch.iinfo(data.dtype)
+                lo = torch.where(validity, data, info.max).amin()
+                hi = torch.where(validity, data, info.min).amax()
+                some = validity.any().to(data.dtype)
+            lo, hi, some = torch.stack([lo, hi, some]).tolist()
+            if some:
+                self._range = (int(lo), int(hi))
+        self._data = self._validity = None
+        return self._range
+
+
 class Column:
-    __slots__ = ("dtype", "data", "validity")
+    """``stats``, where set, is a ``HostRange`` of the column's values:
+    the scan sets it on the integral and date columns it uploads, a
+    projection derives it (``execs.basic.derive_stats``) and a filter
+    under an aggregate keeps it; every other column an op builds has
+    none."""
+
+    __slots__ = ("dtype", "data", "validity", "stats")
 
     def __init__(self, dtype: dt.DType, data: torch.Tensor,
-                 validity: Optional[torch.Tensor] = None):
+                 validity: Optional[torch.Tensor] = None,
+                 stats: Optional[HostRange] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
+        self.stats = stats
 
     @staticmethod
     def from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,

@@ -16,8 +16,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import (Column, Scalar,
-                                                    StringColumn)
+from spark_rapids_tpu_torch.columnar.column import (Column, HostRange,
+                                                    Scalar, StringColumn)
 
 
 @dataclasses.dataclass
@@ -28,6 +28,7 @@ class ColV:
     data: torch.Tensor
     validity: Optional[torch.Tensor]
     scol: Optional[StringColumn] = None  # dictionary carrier for strings
+    stats: Optional[HostRange] = None  # the batch column's, for a reference
 
     def to_column(self) -> Column:
         if self.dtype is dt.STRING and self.scol is not None:
@@ -50,7 +51,7 @@ class EvalContext:
     @staticmethod
     def from_batch(batch: ColumnarBatch, device) -> "EvalContext":
         cols = [ColV(c.dtype, c.data, c.validity,
-                     c if isinstance(c, StringColumn) else None)
+                     c if isinstance(c, StringColumn) else None, c.stats)
                 for c in batch.columns]
         return EvalContext(cols, batch.num_rows, device)
 
@@ -65,6 +66,14 @@ class Expression:
 
     def eval(self, ctx: EvalContext) -> EvalValue:
         raise NotImplementedError
+
+    @property
+    def device_only(self) -> bool:
+        """True where the reference evaluates the node inside one jitted
+        program (no host work on a string dictionary): a projection of
+        such nodes derives its columns' ranges, and a filter of one
+        feeds the aggregate above it as a live mask."""
+        return all(c.device_only for c in self.children)
 
     def __repr__(self) -> str:  # pragma: no cover
         name = type(self).__name__

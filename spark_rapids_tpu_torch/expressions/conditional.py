@@ -21,6 +21,11 @@ class If(Expression):
     def dtype(self):
         return self.children[1].dtype
 
+    @property
+    def device_only(self) -> bool:
+        # string branches merge dictionaries on the host
+        return super().device_only and self.dtype is not dt.STRING
+
     def eval(self, ctx: EvalContext) -> EvalValue:
         pred = self.children[0].eval(ctx)
         if isinstance(pred, Scalar):

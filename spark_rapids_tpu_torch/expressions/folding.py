@@ -49,15 +49,18 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from spark_rapids_tpu_torch.columnar.column import Scalar
 from spark_rapids_tpu_torch.expressions import arithmetic as ar
 from spark_rapids_tpu_torch.expressions.base import (BoundReference,
                                                      Expression, Literal)
+from spark_rapids_tpu_torch.expressions.cast import Cast, _cast_scalar
 
 _BINARY = (ar.Add, ar.Subtract, ar.Multiply)
 
 
 def fold(e: Expression) -> Expression:
     """``e`` as the reference computes it."""
+    e = _cast_literals(e)
     converted = False
     while True:
         e, changed = _pass(e, converted)
@@ -66,6 +69,18 @@ def fold(e: Expression) -> Expression:
             break
         e, converted = folded, True
     return _fuse(e, _Program(e))
+
+
+def _cast_literals(e: Expression) -> Expression:
+    """A cast of a literal is the literal it makes (the reference's Cast
+    of a scalar is a scalar before the program is built)."""
+    e = _with_children(e, [_cast_literals(c) for c in e.children])
+    if isinstance(e, Cast) and isinstance(e.children[0], Literal):
+        lit = e.children[0]
+        v = _cast_scalar(Scalar(lit.dtype, lit.value), lit.dtype, e.to) \
+            if lit.dtype is not e.to else Scalar(e.to, lit.value)
+        return Literal(v.value, e.to)
+    return e
 
 
 def _with_children(e: Expression, kids) -> Expression:

@@ -39,6 +39,12 @@ class _Comparison(Expression):
     def dtype(self) -> dt.DType:
         return dt.BOOLEAN
 
+    @property
+    def device_only(self) -> bool:
+        # string comparisons unify dictionaries on the host
+        return self.children[0].dtype is not dt.STRING and \
+            super().device_only
+
     @staticmethod
     def _string_codes(a: EvalValue, b: EvalValue):
         """A string column against a string literal in doubled code
@@ -181,6 +187,11 @@ class In(Expression):
     @property
     def dtype(self):
         return dt.BOOLEAN
+
+    @property
+    def device_only(self) -> bool:
+        return super().device_only and \
+            self.children[0].dtype is not dt.STRING
 
     def eval(self, ctx):
         child = self.children[0]

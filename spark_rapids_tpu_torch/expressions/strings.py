@@ -66,6 +66,10 @@ class _StrPredicate(Expression):
     def dtype(self):
         return dt.BOOLEAN
 
+    @property
+    def device_only(self) -> bool:
+        return False
+
     def test(self, s: str) -> bool:
         raise NotImplementedError
 
@@ -149,6 +153,10 @@ class Substring(Expression):
     @property
     def dtype(self):
         return dt.STRING
+
+    @property
+    def device_only(self) -> bool:
+        return False
 
     def fn(self, s: str) -> str:
         pos, ln = self.pos, self.length

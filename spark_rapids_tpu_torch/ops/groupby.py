@@ -3,7 +3,8 @@
 Two paths, chosen as the reference chooses them:
 
 - **Dense** (``_dense_groupby``): when every key's value range is known on
-  the host (string dictionaries and booleans always) and the packed key
+  the host (string dictionaries and booleans always, a numeric key from
+  its column's statistics, ``key_range_of``) and the packed key
   space has at most ``_DENSE_MAX_GROUPS`` slots (TPC-H q1's returnflag x
   linestatus, q4's priorities, q12's ship modes), each row maps to a
   slot code and each aggregate reduces per slot with no sort. The counts
@@ -94,13 +95,19 @@ def quantize_range(lo: int, hi: int) -> Tuple[int, int]:
 
 
 def key_range_of(col: Column, dtype: dt.DType) -> Optional[Tuple[int, int]]:
-    """Host-known closed value range for packed-key grouping: string
-    dictionaries and booleans have one (the port's columns carry no
-    numeric statistics)."""
+    """Host-known closed value range for packed-key grouping (quantized):
+    string dictionaries and booleans always have one; an integral, DATE
+    or TIMESTAMP key when its column carries statistics
+    (``Column.stats``: the scan's, reduced here on first use)."""
     if isinstance(col, StringColumn):
         return quantize_range(0, max(len(col.dictionary) - 1, 0))
     if dtype is dt.BOOLEAN:
         return (0, 1)
+    if (dtype.is_integral or dtype in (dt.DATE, dt.TIMESTAMP)) and \
+            col.stats is not None:
+        s = col.stats.get()
+        if s is not None:
+            return quantize_range(s[0], s[1])
     return None
 
 

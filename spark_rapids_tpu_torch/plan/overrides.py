@@ -31,7 +31,10 @@ from spark_rapids_tpu_torch.plan.optimizer import (
 #: rows per uploaded scan batch (the reference's
 #: rapids.tpu.sql.reader.batchSizeRows, same key and default)
 BATCH_SIZE_ROWS = "rapids.tpu.sql.reader.batchSizeRows"
-_DEFAULTS = {BATCH_SIZE_ROWS: 1 << 21}
+#: whether join chains take the greedy order (the reference's switch of
+#: its optimizer, same key and default); off, a plan runs as written
+OPTIMIZER_ENABLED = "rapids.tpu.sql.optimizer.enabled"
+_DEFAULTS = {BATCH_SIZE_ROWS: 1 << 21, OPTIMIZER_ENABLED: True}
 
 
 def apply_overrides(plan: pn.PlanNode, conf: Optional[dict] = None,
@@ -41,8 +44,9 @@ def apply_overrides(plan: pn.PlanNode, conf: Optional[dict] = None,
     unknown = set(conf) - set(_DEFAULTS)
     if unknown:
         raise ValueError(f"unknown conf keys: {sorted(unknown)}")
-    return _convert(rewrite_distinct_aggregates(reorder_joins(plan)), conf,
-                    device)
+    if conf[OPTIMIZER_ENABLED]:
+        plan = reorder_joins(plan)
+    return _convert(rewrite_distinct_aggregates(plan), conf, device)
 
 
 def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
@@ -58,8 +62,13 @@ def _convert(node: pn.PlanNode, conf: dict, device) -> TorchExec:
                            device)
     if isinstance(node, pn.AggregateNode):
         aggs = [pn.AggCall(fold(a.fn), a.name) for a in node.aggs]
+        child = kids[0]
+        if isinstance(child, FilterExec) and child.condition.device_only:
+            # the reference fuses such a filter into the aggregate as a
+            # live mask, so the child's column statistics survive it
+            child.keep_stats = True
         return HashAggregateExec([fold(e) for e in node.grouping], aggs,
-                                 kids[0], schema, device)
+                                 child, schema, device)
     if isinstance(node, pn.SortNode):
         return SortExec(node.specs, kids[0], device)
     if isinstance(node, pn.LimitNode):

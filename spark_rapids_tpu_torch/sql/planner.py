@@ -13,8 +13,9 @@ sides.
 
 Whatever would build an expression or a node the port lacks raises
 ``SqlError`` naming it ("... is not ported yet"): window functions, set
-operations, ROLLUP, IN / EXISTS / scalar subqueries, CASE, non-literal
-casts and unary minus, the datetime, math and other scalar functions,
+operations, ROLLUP, IN / EXISTS / scalar subqueries, CASE, unary
+minus, the datetime functions other than year, month, quarter, weekday,
+dayofweek, day and dayofmonth, the math and other scalar functions,
 aggregates other than sum, count, avg, min and max, DISTINCT aggregates
 the optimizer's rewrite refuses (other than count and sum, or over more
 than one column), cross joins, and left, right and full joins with a
@@ -32,10 +33,12 @@ import numpy as np
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.expressions import aggregates as A
 from spark_rapids_tpu_torch.expressions import arithmetic as ar
+from spark_rapids_tpu_torch.expressions import datetime as dte
 from spark_rapids_tpu_torch.expressions import predicates as pr
 from spark_rapids_tpu_torch.expressions import strings as st
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Expression, Literal)
+from spark_rapids_tpu_torch.expressions.cast import Cast
 from spark_rapids_tpu_torch.ops.sortkeys import SortKeySpec
 from spark_rapids_tpu_torch.plan import nodes as pn
 from spark_rapids_tpu_torch.plan.optimizer import rewrite_distinct_aggregates
@@ -55,6 +58,12 @@ _REFERENCE_FNS = {
     "datediff", "unix_timestamp", "to_unix_timestamp", "to_date", "nullif",
     "greatest", "least", "exp", "log", "log2", "log10", "sin", "cos",
     "tan"}
+
+#: the date functions, as the reference's planner maps them
+_DATE_FIELDS = {"year": dte.Year, "month": dte.Month,
+                "quarter": dte.Quarter, "weekday": dte.WeekDay,
+                "dayofweek": dte.DayOfWeek, "day": dte.DayOfMonth,
+                "dayofmonth": dte.DayOfMonth}
 
 _CAST_TYPES = {
     "tinyint": dt.INT8, "smallint": dt.INT16,
@@ -125,6 +134,10 @@ def _fn_scalar(name: str, args: List[Expression]) -> Expression:
         ln = _want_int_lit(args[2], "substring length") \
             if len(args) == 3 else None
         return st.Substring(args[0], pos, ln)
+    if name in _DATE_FIELDS:
+        if len(args) != 1:
+            raise SqlError(f"{name}() takes 1 arguments")
+        return _DATE_FIELDS[name](args[0])
     if name in _REFERENCE_FNS:
         raise _not_ported(f"function {name}()")
     raise SqlError(f"unknown function {name}()")
@@ -306,7 +319,7 @@ class _ExprPlanner:
                 return Literal(float(e.value), to)
             if to.is_integral:
                 return Literal(int(e.value), to)
-        raise _not_ported(f"CAST(... AS {ast[2]})")
+        return Cast(e, to)
 
     def _literal(self, ast) -> Expression:
         _, v, k = ast

@@ -736,3 +736,93 @@ def test_join_kinds_card_equal_cpu(kind):
         assert (gv is None) == (wv is None)
         if gv is not None:
             np.testing.assert_array_equal(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["bigint_nulls", "date", "scan"])
+def test_numeric_key_dense_path_card_equal_cpu(key):
+    """A numeric key whose column carries its (min, max) takes the dense
+    path on the card as on the CPU (C6): the C5 groups' sum, min, max,
+    any_valid, first and last bit for bit, no S1 launch; an int64 key
+    with nulls and a negative range, a DATE key, and an int key straight
+    from the scan (``ScanExec`` sets the range) under a query."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.columnar.column import HostRange
+    from spark_rapids_tpu_torch.ops import groupby as gb
+
+    dev = _card()
+    d = np.concatenate(_C5_GROUPS)
+    which = np.concatenate([[i] * len(g) for i, g in enumerate(_C5_GROUPS)])
+    f = d.astype(np.float32)
+    if key == "scan":
+        from spark_rapids_tpu_torch.api import Session
+        from spark_rapids_tpu_torch.plan import nodes as pn
+
+        text = ("SELECT k, sum(d) AS s, min(d) AS lo, max(d) AS hi, "
+                "min(f) AS flo, max(f) AS fhi FROM t GROUP BY k ORDER BY k")
+        out = []
+        for on in (dev, "cpu"):
+            s = Session(device=on)
+            s.create_temp_view("t", pn.InMemorySource(
+                {"k": which.astype(np.int32), "d": d, "f": f}))
+            nk.reset_launches()
+            got = s.sql(text).collect()
+            if on == dev:
+                assert nk.LAUNCHES["seg_sum"] == 0
+            out.append(got)
+        for c in out[1]:
+            assert np.asarray(out[0][c]).tobytes() == \
+                np.asarray(out[1][c]).tobytes(), c
+        return
+    specs = [gb.AggSpec(op, o) for o in (1, 2)
+             for op in ("sum", "min", "max", "any_valid", "first", "last")]
+    if key == "date":
+        kd, kt, kv = (which + 19000).astype(np.int32), dt.DATE, None
+    else:
+        kd, kt = which.astype(np.int64) - 2**40 - 7, dt.INT64
+        kv = np.arange(len(which)) % 4 != 1
+    types = [kt, dt.FLOAT64, dt.FLOAT32]
+    out = []
+    for on in (dev, "cpu"):
+        b = batch_from_numpy([kd, d, f], types, [kv, None, None], device=on)
+        b.columns[0].stats = HostRange(b.columns[0].data,
+                                       b.columns[0].validity)
+        assert gb._dense_layout(types, [0], (gb.key_range_of(
+            b.columns[0], kt),), (kv is not None,)) is not None
+        nk.reset_launches()
+        got, _ = gb.groupby_aggregate(b, [0], specs, types)
+        if on == dev:
+            assert nk.LAUNCHES["seg_sum"] == 0
+        out.append([(c.data.cpu(), None if c.validity is None else
+                     c.validity.cpu()) for c in got.columns])
+    for (g, gv), (w, wv) in zip(*out):
+        assert g.dtype == w.dtype
+        assert (gv is None) == (wv is None)
+        if gv is not None:
+            assert torch.equal(gv, wv)
+            g, w = g[gv], w[wv]
+        assert g.numpy().tobytes() == w.numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int8, np.int32, np.int64])
+def test_host_range_on_card_equals_host(dtype):
+    """A scan column's range reduced on the card (C6) equals numpy's over
+    the same valid rows: with nulls, with none, all null and empty."""
+    from spark_rapids_tpu_torch.columnar.column import HostRange
+
+    dev = _card()
+    r = np.random.default_rng(3)
+    info = np.iinfo(dtype)
+    x = r.integers(info.min, info.max, 100_003, dtype=dtype, endpoint=True)
+    valid = r.random(len(x)) > 0.3
+    cases = [(x, None), (x, valid), (x, np.zeros(len(x), bool)),
+             (x[:0], None)]
+    for vals, v in cases:
+        live = vals if v is None else vals[v]
+        want = (int(live.min()), int(live.max())) if len(live) else None
+        got = HostRange(torch.from_numpy(vals).to(dev),
+                        None if v is None else
+                        torch.from_numpy(v).to(dev)).get()
+        assert got == want

@@ -312,3 +312,46 @@ def test_multiply_add_rounds_once():
                       for x, y, z in zip(a, b, c)])
     np.testing.assert_array_equal(got.view(np.int64), exact.view(np.int64))
     assert (got != a * b + c).any()
+
+
+def test_q9_profit_fuses_as_the_reference():
+    """TPC-H q9's ``e * (1 - d) - c * q`` over the generators' columns:
+    the reference fuses the left product (``fma(e, 1 - d, -(c * q))``,
+    as the port's rule does), so every row's amount is bit-equal, where
+    the right product's fusion or none would differ on many rows."""
+    from spark_rapids_tpu.columnar import dtypes as rdt
+    from spark_rapids_tpu.config import RapidsConf
+    from spark_rapids_tpu.execs.base import collect as rcollect
+    from spark_rapids_tpu.expressions import arithmetic as rar
+    from spark_rapids_tpu.expressions import base as rbase
+    from spark_rapids_tpu.plan.overrides import apply_overrides as rapply
+
+    from spark_rapids_tpu_torch.benchmarks import datagen
+    from spark_rapids_tpu_torch.columnar import dtypes as tdt
+    from spark_rapids_tpu_torch.execs.base import collect
+    from spark_rapids_tpu_torch.expressions import arithmetic as tar
+    from spark_rapids_tpu_torch.expressions import base as tbase
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+
+    li = datagen.gen_lineitem(0.01)
+    cost = datagen.gen_partsupp(0.01)["ps_supplycost"]
+    n = 20000
+    cols = {"e": li["l_extendedprice"][:n], "d": li["l_discount"][:n],
+            "c": cost[np.random.default_rng(1).integers(0, len(cost), n)],
+            "q": li["l_quantity"][:n]}
+
+    def plan(ar, base, dtm, nodes):
+        x = [base.BoundReference(i, dtm.FLOAT64) for i in range(4)]
+        profit = ar.Subtract(
+            ar.Multiply(x[0], ar.Subtract(base.Literal(1.0), x[1])),
+            ar.Multiply(x[2], x[3]))
+        return nodes.ProjectNode([base.Alias(profit, "a")], nodes.ScanNode(
+            nodes.InMemorySource(dict(cols))), ["a"])
+
+    want = rcollect(rapply(plan(rar, rbase, rdt, rpn), RapidsConf()))
+    got = collect(apply_overrides(plan(tar, tbase, tdt, pn), device="cpu"))
+    w = want["a"].to_numpy()
+    g = np.asarray(got["a"], np.float64)
+    assert g.view(np.int64).tolist() == w.view(np.int64).tolist()
+    plain = cols["e"] * (1.0 - cols["d"]) - cols["c"] * cols["q"]
+    assert (plain != w).sum() > n // 10

@@ -33,6 +33,7 @@ from spark_rapids_tpu.plan.overrides import (  # noqa: E402
     apply_overrides as rapply)
 
 from spark_rapids_tpu_torch.columnar import dtypes as tdt  # noqa: E402
+from spark_rapids_tpu_torch.columnar.column import HostRange  # noqa: E402
 from spark_rapids_tpu_torch.execs.base import collect  # noqa: E402
 from spark_rapids_tpu_torch.expressions import aggregates as TA  # noqa: E402
 from spark_rapids_tpu_torch.expressions.base import (  # noqa: E402
@@ -315,9 +316,27 @@ def _c5_tables():
                          "d": np.r_[d, 1.0]}}
     for i, g in enumerate(names):
         tables[f"t{i}"] = {"d": np.array(_C5_GROUPS[g])}
+    # C6: numeric keys with upload statistics, the groups in key order
+    tables["t_int"] = {"k": which.astype(np.int64), "d": d}
+    tables["t_wide"] = {"k": which.astype(np.int64) * 1000 - 3000, "d": d}
+    tables["t_date"] = {"k": (which + 19000).astype(np.int32), "d": d}
     for cols in tables.values():
         cols["f"] = cols["d"].astype(np.float32)
     return tables
+
+
+# C6: path -> the query over numeric keys (the reference reads their
+# upload statistics: a small range takes its dense path, a wide one its
+# packed sort path)
+_C6_QUERIES = {
+    "int_scan": "SELECT k, {aggs} FROM t_int GROUP BY k ORDER BY k",
+    "int_projected": "SELECT k, {aggs} FROM (SELECT k, d, f FROM t_int) x "
+                     "GROUP BY k ORDER BY k",
+    "int_filtered": "SELECT k, {aggs} FROM t_int WHERE k < 100 "
+                    "GROUP BY k ORDER BY k",
+    "int64_wide": "SELECT k, {aggs} FROM t_wide GROUP BY k ORDER BY k",
+    "date": "SELECT k, {aggs} FROM t_date GROUP BY k ORDER BY k",
+}
 
 
 @pytest.fixture(scope="module")
@@ -328,10 +347,20 @@ def c5_results():
 
     from spark_rapids_tpu_torch.api import Session
 
+    from spark_rapids_tpu.columnar import dtypes as rdt
+    from spark_rapids_tpu.columnar.batch import Schema as RSchema
+
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+
     rs, s = RSession(), Session(device="cpu")
     for name, cols in _c5_tables().items():
-        rs.create_temp_view(name, rpn.InMemorySource(dict(cols)))
-        s.create_temp_view(name, pn.InMemorySource(dict(cols)))
+        names = list(cols)
+        types = [tdt.DATE if name == "t_date" and c == "k" else
+                 tdt.from_numpy(cols[c].dtype) for c in names]
+        rs.create_temp_view(name, rpn.InMemorySource(dict(cols), RSchema(
+            names, [rdt.by_name(t.name) for t in types])))
+        s.create_temp_view(name, pn.InMemorySource(dict(cols),
+                                                   Schema(names, types)))
     names = sorted(_C5_GROUPS)
     out = {}
 
@@ -345,9 +374,10 @@ def c5_results():
         return ({c: want[c].to_numpy() for c in want.columns},
                 {c: np.asarray(v) for c, v in s.sql(text).collect().items()})
 
-    for path in ("dense", "sort"):
-        want, got = run(f"SELECT k, {_C5_AGGS} FROM t_{path} GROUP BY k "
-                        f"ORDER BY k")
+    queries = {path: f"SELECT k, {{aggs}} FROM t_{path} GROUP BY k "
+                     f"ORDER BY k" for path in ("dense", "sort")}
+    for path, text in {**queries, **_C6_QUERIES}.items():
+        want, got = run(text.format(aggs=_C5_AGGS))
         for i, g in enumerate(names):
             out[path, g] = bits(want, i), bits(got, i)
     for i, g in enumerate(names):  # an average too: a grand query is cheap
@@ -357,13 +387,143 @@ def c5_results():
 
 
 @pytest.mark.parametrize("group", sorted(_C5_GROUPS))
-@pytest.mark.parametrize("path", ["dense", "sort", "grand"])
+@pytest.mark.parametrize("path", ["dense", "sort", "grand"] +
+                         list(_C6_QUERIES))
 def test_zero_signs_of_float_aggregates_match_reference_engine(
         c5_results, path, group):
     """sum, min and max of a double column (and its avg with no key) and
     min and max of a float column, bit for bit against the reference
-    engine (C5)."""
+    engine (C5); and per numeric key (C6): a small-range integer key
+    straight from the scan, through a bare projection and after a filter
+    (dense in the reference, from its upload statistics), an int64 key
+    whose range passes 128 slots (its packed sort path) and a DATE
+    key."""
     want, got = c5_results[path, group]
+    assert got == want
+
+
+# -- C6: numeric keys with statistics on the dense path -----------------------
+
+# key type -> (values, a null every k-th row or 0): negative ranges, int8
+# to int64 and DATE, each packing into at most 128 slots with its nulls
+_C6_KEYS = {"tinyint_negative": ("tinyint", -40, -10, 7),
+            "int_nulls": ("int", 0, 30, 5),
+            "bigint": ("bigint", 2**40, 2**40 + 90, 0),
+            "bigint_negative_nulls": ("bigint", -2**50 - 30, -2**50, 3),
+            "date": ("date", -400, -370, 11)}
+
+
+@pytest.mark.parametrize("case", sorted(_C6_KEYS))
+def test_numeric_key_dense_path_matches_reference(case):
+    """A numeric key whose (min, max) is known packs into slots on the
+    dense path in both engines: every op, exact against the reference
+    (float sums within 1e-9, their order being outside the contract)."""
+    t, lo, hi, null_every = _C6_KEYS[case]
+    datas, valids = _columns(n=500, seed=4)
+    r = np.random.default_rng(12)
+    key = r.integers(lo, hi + 1, 500).astype(tdt.by_name(t).np_dtype)
+    kv = None if not null_every else np.arange(500) % null_every != 0
+    types = [t] + _TYPES[1:]
+    rb, rtypes = _reference_batch([key] + datas[1:], types,
+                                  [kv] + valids[1:], 500)
+    live = key if kv is None else key[kv]
+    rb.columns[0].stats = (int(live.min()), int(live.max()))
+    tb, ttypes = _port_batch([key] + datas[1:], types, [kv] + valids[1:])
+    tb.columns[0].stats = HostRange(tb.columns[0].data,
+                                    tb.columns[0].validity)
+    want, _ = rgb.groupby_aggregate(rb, [0], _specs(rgb), rtypes)
+    calls = []
+    orig = tgb._dense_groupby
+    tgb._dense_groupby = lambda *a: calls.append(1) or orig(*a)
+    try:
+        got, _ = tgb.groupby_aggregate(tb, [0], _specs(tgb), ttypes)
+    finally:
+        tgb._dense_groupby = orig
+    assert calls == [1]
+    ng = int(jax.device_get(want.num_rows_device()))
+    assert got.num_rows == ng
+    _assert_columns_equal(got, want, ng)
+
+
+# Where does a numeric key take the dense path? Seen through C5: a min of
+# -0.0 stays -0.0 on the dense path and is +0.0 on the sort path. Every
+# table comes from a scan, so its integer and DATE columns carry
+# statistics; ``z`` is -0.0 on every row.
+_C6_PATHS = [
+    "SELECT k, min(z) AS m FROM a GROUP BY k",
+    "SELECT k, min(z) AS m FROM (SELECT k, z FROM a) x GROUP BY k",
+    "SELECT k, min(z) AS m FROM a WHERE v > 0.0 GROUP BY k",
+    "SELECT k, min(z) AS m FROM a WHERE s = 'x' GROUP BY k",
+    "SELECT k, min(z) AS m FROM (SELECT k, z FROM a WHERE v > 0.0) x "
+    "GROUP BY k",
+    "SELECT k2, min(z) AS m FROM (SELECT k + 1 AS k2, z FROM a) x "
+    "GROUP BY k2",
+    "SELECT k2, min(z) AS m FROM (SELECT k * 1000 AS k2, z FROM a) x "
+    "GROUP BY k2",
+    "SELECT k2, min(z) AS m FROM (SELECT CAST(k AS int) AS k2, z FROM a) x "
+    "GROUP BY k2",
+    "SELECT y, min(z) AS m FROM (SELECT year(dt) AS y, z FROM a) x "
+    "GROUP BY y",
+    "SELECT k2, min(z) AS m FROM (SELECT k + 1 AS k2, substring(s, 1, 1) "
+    "AS c, z FROM a) x GROUP BY k2",
+    "SELECT a.k, min(b.w) AS m FROM a JOIN b ON a.k = b.k GROUP BY a.k",
+    "SELECT wide, min(z) AS m FROM a GROUP BY wide",
+    "SELECT k, dt, min(z) AS m FROM a GROUP BY k, dt",
+]
+
+
+@pytest.fixture(scope="module")
+def c6_paths():
+    """query -> (the reference's signs of min, the port's), one session
+    each; the reference's exec tree unfused, as the port's is (with
+    fusion on, its statistics also survive a string filter, a projection
+    over a filter and a join's stream side: ROADMAP C7)."""
+    from spark_rapids_tpu.api import Session as RSession
+    from spark_rapids_tpu.columnar import dtypes as rdt
+    from spark_rapids_tpu.columnar.batch import Schema as RSchema
+
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+
+    r = np.random.default_rng(6)
+    n = 300
+    a = {"k": r.integers(-5, 20, n).astype(np.int64),
+         "v": r.standard_normal(n), "z": np.full(n, -0.0),
+         "s": np.array(["x", "y"], dtype=object)[r.integers(0, 2, n)],
+         "dt": r.integers(9000, 9060, n).astype(np.int32),
+         "wide": r.integers(0, 5000, n).astype(np.int64)}
+    b = {"k": np.arange(-5, 20, dtype=np.int64), "w": np.full(25, -0.0)}
+    types = {"k": tdt.INT64, "v": tdt.FLOAT64, "z": tdt.FLOAT64,
+             "s": tdt.STRING, "dt": tdt.DATE, "wide": tdt.INT64,
+             "w": tdt.FLOAT64}
+    rs = RSession({"rapids.tpu.sql.fusion.enabled": False,
+                   "rapids.tpu.sql.adaptive.enabled": False})
+    s = Session(device="cpu")
+    for name, cols in (("a", a), ("b", b)):
+        names = list(cols)
+        ts = [types[c] for c in names]
+        rs.create_temp_view(name, rpn.InMemorySource(dict(cols), RSchema(
+            names, [rdt.by_name(t.name) for t in ts])))
+        s.create_temp_view(name, pn.InMemorySource(dict(cols),
+                                                   Schema(names, ts)))
+    return {text: (np.signbit(rs.sql(text).collect()["m"].to_numpy())
+                   .tolist(),
+                   np.signbit(np.asarray(s.sql(text).collect()["m"],
+                                         np.float64)).tolist())
+            for text in _C6_PATHS}
+
+
+@pytest.mark.parametrize("case", range(len(_C6_PATHS)))
+def test_numeric_key_takes_dense_path_where_reference_does(c6_paths, case):
+    """A numeric key takes the dense path in the port exactly where the
+    reference's does (a min of -0.0 is -0.0 there, +0.0 on the sort
+    path): straight from the scan, through a projection of device-only
+    expressions (a reference, a cast, ``+ - *`` by an integer literal,
+    ``year``), after a device-only filter the aggregate takes as a live
+    mask; not after a string predicate, a filter below a projection, a
+    projection with a string function or a join, nor past 128 slots."""
+    want, got = c6_paths[_C6_PATHS[case]]
+    assert len(got) == len(want) > 0
     assert got == want
 
 

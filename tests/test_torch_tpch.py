@@ -1,5 +1,4 @@
-"""TPC-H q1, q3, q4, q6, q12-q16, q18, q21 and q22 through the port
-against the reference engine.
+"""The 22 TPC-H queries through the port against the reference engine.
 
 The port's numpy generators must give the reference generators' columns
 seed for seed, on the whole-table path and on the chunked one (string
@@ -10,8 +9,10 @@ written from the reference's generators. q14 and q22 run the reference
 twice: with fusion and adaptive execution off and the native kernels on
 (the exec tree the port mirrors), and with the default conf. The others
 run it once, unfused, on its default plain path, against the port at
-256-row scan batches, so many batches share one dictionary (and the
-aggregates merge many partials: q21's distinct counts, q18's sums).
+256-row scan batches (2,048 for the ten queries that need `Year`,
+`Cast` or the generators' last columns), so
+many batches share one dictionary (and the aggregates merge many
+partials: q21's distinct counts, q18's sums).
 Strings, keys and counts exact, float sums within 1e-9 relative (the
 reference's own tolerance against its CPU oracle; the two engines sum in
 different orders).
@@ -120,9 +121,13 @@ _QUERIES = {q: (lambda t, q=q: getattr(tpch, q)(
 # q22 over the first 10% of the orders rows
 _CASES = {"q14": ("q14", 1.0), "q22": ("q22", 1.0), "q22_few_orders":
           ("q22", 0.1)}
+# the ten queries that came with `Year`, `Cast` and the generators' last
+# columns: every one keeps rows at sf 0.01
+_NEW_QUERIES = ("q5", "q10", "q19", "q2", "q17", "q7", "q8", "q9", "q11",
+                "q20")
 # run by the reference once each, unfused, on its plain path
 _HOST_STRING_QUERIES = ("q1", "q3", "q4", "q6", "q12", "q13", "q15", "q16",
-                        "q18", "q21")
+                        "q18", "q21") + _NEW_QUERIES
 
 
 @pytest.fixture(scope="module")
@@ -206,17 +211,19 @@ def test_query_in_small_batches(reference_results, case, batch_rows):
 @pytest.mark.parametrize("query", _HOST_STRING_QUERIES)
 def test_host_string_query_matches_reference_engine(reference_results,
                                                     query):
-    """256-row scan batches over ``HostStrings`` tables: every batch of a
-    scan shares its table's dictionary, through filters, joins, the
-    aggregate's merges and the sort. Nothing calls
-    ``StringColumn.from_strings``."""
+    """256-row scan batches over ``HostStrings`` tables (2,048 for the
+    ten queries of ``_NEW_QUERIES``, their joins' stream side still 30
+    lineitem batches): every batch of a scan shares its table's
+    dictionary, through filters, joins, the aggregate's merges and the
+    sort. Nothing calls ``StringColumn.from_strings``."""
     calls = []
     orig = StringColumn.from_strings
     StringColumn.from_strings = staticmethod(
         lambda *a, **k: calls.append(1) or orig(*a, **k))
     try:
+        rows = 2048 if query in _NEW_QUERIES else 256
         got = collect(apply_overrides(_QUERIES[query](_tables()),
-                                      {_BATCH: 256}, device="cpu"))
+                                      {_BATCH: rows}, device="cpu"))
     finally:
         StringColumn.from_strings = staticmethod(orig)
     assert not calls
@@ -229,7 +236,7 @@ def _join_order(node):
     """The column names of each relation of a join chain, in join order
     (the stream side first), found below any projection."""
     while type(node).__name__ in ("ProjectNode", "LimitNode", "SortNode",
-                                  "AggregateNode"):
+                                  "AggregateNode", "FilterNode"):
         node = node.children[0]
     if type(node).__name__ == "JoinNode":
         return _join_order(node.children[0]) + \
@@ -242,13 +249,26 @@ def _decoded(cols):
             for k, v in cols.items()}
 
 
-@pytest.mark.parametrize("case", ["q3", "q91_sf0.01", "q91_sf1"])
+@pytest.mark.parametrize("query", _NEW_QUERIES)
+def test_new_query_keeps_rows(reference_results, query):
+    """A result with rows at sf 0.01 (a grand aggregate's one row not
+    null), so the comparisons above hold something."""
+    want = reference_results[query]
+    assert len(want) > 0
+    assert all(want[c].notna().all() for c in want.columns)
+
+
+@pytest.mark.parametrize("case", ["q3", "q91_sf0.01", "q91_sf1"] +
+                         list(_NEW_QUERIES))
 def test_join_chain_in_the_reference_order(case, parquet_dirs):
     """The reference's default optimizer puts a join chain in its greedy
     order: q3's filtered lineitem streams, orders then customer build;
     q91's chain (as ``plan_statement`` gives it) starts from
-    household_demographics at sf 0.01 and from catalog_returns at sf 1.
-    The port's ``reorder_joins`` gives the same order."""
+    household_demographics at sf 0.01 and from catalog_returns at sf 1;
+    q5, q7, q8 and q9 stream lineitem into supplier first, q10 into
+    orders. The port's ``reorder_joins`` gives the same order for every
+    plan (q5's puts customer after the region, joined on the nation key
+    alone: ROADMAP, Queue C)."""
     from spark_rapids_tpu.benchmarks import tpcds as rtpcds
     from spark_rapids_tpu.plan import nodes as rpn
     from spark_rapids_tpu.plan.optimizer import optimize as roptimize
@@ -260,10 +280,18 @@ def test_join_chain_in_the_reference_order(case, parquet_dirs):
     from spark_rapids_tpu_torch.plan.optimizer import reorder_joins
     from spark_rapids_tpu_torch.sql import parse, plan_statement
 
-    if case == "q3":
-        want = _join_order(roptimize(rtpch.q3(parquet_dirs[1.0])))
-        got = _join_order(reorder_joins(_QUERIES["q3"](_tables())))
-        first = ("l_orderkey", "o_orderkey")
+    if not case.startswith("q91"):
+        want = _join_order(roptimize(getattr(rtpch, case)(
+            parquet_dirs[1.0])))
+        got = _join_order(reorder_joins(_QUERIES[case](_tables())))
+        first = {"q3": ("l_orderkey", "o_orderkey"),
+                 "q5": ("l_orderkey", "s_suppkey"),
+                 "q10": ("l_orderkey", "o_orderkey"),
+                 "q7": ("l_orderkey", "s_suppkey"),
+                 "q8": ("l_orderkey", "s_suppkey"),
+                 "q9": ("l_orderkey", "s_suppkey")}.get(case)
+        if first is None:  # no chain of three: the written order
+            first = (got[0][0], got[1][0])
     else:
         sf = float(case.split("_sf")[1])
         tables = tpcds.q91_tables(sf)
@@ -293,6 +321,23 @@ def test_query_matches_numpy_oracle(case):
             np.testing.assert_allclose(got[name], col, rtol=1e-9, atol=0)
         else:
             assert list(got[name]) == list(col)
+
+
+def test_q5_as_written_matches_numpy_oracle():
+    """With ``rapids.tpu.sql.optimizer.enabled`` off (the reference's
+    switch) a plan runs in its written order: q5's customer, orders,
+    lineitem, then the supplier chain on two keys (the greedy order
+    joins customer on the nation key alone, about 7e11 rows at sf 10)."""
+    t = _tables()
+    args = [t[n] for n in tpch.INPUTS["q5"]]
+    assert tpch.QUERY_CONF["q5"] == {"rapids.tpu.sql.optimizer.enabled":
+                                     False}
+    got = collect(apply_overrides(tpch.q5(*args), tpch.QUERY_CONF["q5"],
+                                  device="cpu"))
+    want = tpch.q5_numpy(*args)
+    assert list(got["n_name"]) == list(want["n_name"])
+    np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-9,
+                               atol=0)
 
 
 def test_grand_aggregate_over_no_rows_yields_one_null_row():
