@@ -50,10 +50,16 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    oracle (groups, keys and counts exact, sums within 1e-9 relative);
 5. TPCx-BB q26 at sf 10 (store_sales 28.8M rows, item 180k, 1M
    customers) through apply_overrides -> collect, exactly equal to a
-   numpy oracle, with K1, K2 and K3 launched during the query;
+   numpy oracle; every query phase from here on runs the default exec
+   tree (fused, ``execs/fused.py``) and then the unfused one
+   (``rapids.tpu.sql.fusion.enabled`` false), each checked, each with a
+   line of its own (``"tree"``) and, for the fused tree, its fused execs,
+   the ones that fell back to their unfused subtree and each chain
+   join's probe mode (dense or hash); each tree must launch the kernels
+   ``PATH_KERNELS`` gives it, and the fused tree also K1 wherever a
+   standalone chain ran and K3 wherever a chain join probed by hash;
 6. TPC-H q14 at sf 10 (lineitem 60M rows in 8 generation chunks, part
-   2M), within 1e-9 relative of a numpy oracle, with K4, K3 and K1
-   launched during the query;
+   2M), within 1e-9 relative of a numpy oracle;
 7. the other TPC-H queries of ``tpch.INPUTS`` at sf 10 over the same
    lineitem (and orders 15M, customer 1.5M, supplier 100k, nation 25,
    region 5, partsupp 8M), generated once with its string columns as
@@ -62,16 +68,17 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    q8, q9, q11 and q20, each against its numpy oracle (strings, keys
    and counts exact, float sums and averages within 1e-9 relative),
    with rows (a grand aggregate's not null), failing unless it launched
-   every kernel of its path (``PATH_KERNELS``; every launch count
-   printed), with its warm wall, its peak device memory, and q3's
+   every kernel of its path (every launch count printed), with its warm
+   wall, its peak device memory (and what was allocated before it
+   started), and q3's
    build rows; q5 with ``tpch.QUERY_CONF`` (its written join order: the
    greedy one joins customer on the nation key alone), q11 with TPC-H's
    fraction for the scale (0.0001 / sf; the reference's literal is the
    sf-1 value and keeps no part at sf 10);
-   q1 also in a profiled run: its group-by calls' device time (the
-   dense path since the tenth slice), failing if ``index_add_`` ran;
-   q21 again with every aggregate step timed apart (the merge loop of
-   its distinct counts);
+   q1 also in a profiled run of the default tree: its group-by calls'
+   device time (the dense path), failing if ``index_add_`` ran; q21
+   again with every aggregate step timed apart (the merge loop of its
+   distinct counts);
    then the group-by's float sums at q1's shape (the dense path, 6
    groups over 2,097,152 rows, q1's eight aggregates) and the sort
    path's fold kernel (S1, ``seg_reduce``, counted as ``seg_sum``):
@@ -89,13 +96,15 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    to the same call on the CPU;
    then TPC-H q22 at sf 10 (customer 1.5M rows, orders 15M), country
    codes and counts exact and balances within 1e-9 relative of a numpy
-   oracle, with K6, K3, K2 and K1 launched during the query, and the
-   substring step split into kernel time and host dictionary rebuild;
+   oracle, and the substring step split into kernel time and host
+   dictionary rebuild;
 8. TPC-DS q91 at sf 10 (catalog_returns 1.2M rows sampled from 14.4M
    catalog_sales, customer 1M, customer_address 500k) through the SQL
    front end (Session.create_temp_view -> sql -> collect), group keys
-   exact and sums within 1e-9 relative of a numpy oracle, with K5, K3
-   and K1 launched during the query;
+   exact and sums within 1e-9 relative of a numpy oracle; then the C7
+   queries (a small-range key that keeps its statistics through a
+   string filter, a filter below a projection and a join's stream side
+   in the fused tree) on the card against the CPU, bit for bit;
 9. the partition kernel at the sizes the timed query runs launched it
    with (a histogram of them, then cases at their quantiles, each
    against its plain version and its count against ``mask.sum()``);
@@ -123,35 +132,86 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1.979e15
 SF = 10
 SEED_Q5 = 7
-# kernels of each timed query (launch counts must be positive there)
-PATH_KERNELS = {"q26": ("partition_order", "radix_order", "probe"),
-                "q14": ("match_table", "probe", "partition_order"),
-                "q22": ("substring", "probe", "radix_order",
-                        "partition_order"),
-                "q91": ("like_table", "probe", "partition_order", "seg_sum"),
-                "q1": ("partition_order",),
-                "q6": ("partition_order",),
-                "q12": ("partition_order", "probe"),
-                "q3": ("partition_order", "probe", "seg_sum"),
-                "q4": ("partition_order", "probe"),
-                "q13": ("partition_order", "probe", "radix_order"),
-                "q15": ("partition_order", "probe", "seg_sum"),
-                "q16": ("partition_order", "probe", "match_table"),
-                "q18": ("partition_order", "probe", "seg_sum"),
-                "q21": ("partition_order", "probe", "radix_order"),
-                "q5": ("partition_order", "probe"),
-                "q10": ("partition_order", "probe", "seg_sum"),
-                "q19": ("partition_order", "probe", "match_table"),
-                "q2": ("partition_order", "probe", "match_table", "seg_sum"),
-                "q17": ("partition_order", "probe", "match_table",
-                        "seg_sum"),
-                "q7": ("partition_order", "probe", "radix_order", "seg_sum"),
-                "q8": ("partition_order", "probe", "radix_order", "seg_sum"),
-                "q9": ("partition_order", "probe", "radix_order",
-                       "match_table", "seg_sum"),
-                "q11": ("partition_order", "probe", "seg_sum"),
-                "q20": ("partition_order", "probe", "radix_order",
-                        "match_table", "seg_sum")}
+FUSION = "rapids.tpu.sql.fusion.enabled"
+# each query runs on the default (fused) tree, then on the unfused one
+TREES = ("fused", "unfused")
+# kernels of each timed query, per tree (launch counts must be positive
+# there; the fused tree must also launch what its chains reach: K1 at a
+# standalone chain's end, K3 for a hash-mode chain join)
+PATH_KERNELS = {"fused": {
+    "q26": ("partition_order", "radix_order"),
+    "q14": ("match_table", "partition_order"),
+    "q22": ("substring", "radix_order", "probe", "partition_order"),
+    "q91": ("like_table", "partition_order", "seg_sum"),
+    "q1": ("radix_order",), "q6": (),
+    "q12": ("partition_order", "radix_order", "probe"),
+    "q3": ("partition_order", "probe", "seg_sum"),
+    "q4": ("partition_order", "radix_order", "probe"),
+    "q13": ("partition_order", "radix_order", "probe"),
+    "q15": ("seg_sum", "radix_order"),
+    "q16": ("partition_order", "radix_order", "match_table"),
+    "q18": ("partition_order", "probe", "seg_sum"),
+    "q21": ("partition_order", "radix_order", "probe"),
+    "q5": ("partition_order", "probe"),
+    "q10": ("partition_order", "probe", "seg_sum"),
+    "q19": ("partition_order", "probe", "match_table"),
+    "q2": ("partition_order", "match_table", "seg_sum"),
+    "q17": ("partition_order", "match_table", "seg_sum"),
+    "q7": ("probe", "radix_order", "seg_sum"),
+    "q8": ("partition_order", "radix_order", "probe"),
+    "q9": ("partition_order", "radix_order", "probe", "match_table",
+           "seg_sum"),
+    "q11": ("partition_order", "seg_sum"),
+    "q20": ("partition_order", "probe", "radix_order", "match_table",
+            "seg_sum")}, "unfused": {
+    "q26": ("partition_order", "radix_order", "probe"),
+    "q14": ("match_table", "probe", "partition_order"),
+    "q22": ("substring", "probe", "radix_order", "partition_order"),
+    "q91": ("like_table", "probe", "partition_order", "seg_sum"),
+    "q1": ("partition_order", "radix_order"),
+    "q6": ("partition_order",),
+    "q12": ("partition_order", "probe", "radix_order"),
+    "q3": ("partition_order", "probe", "seg_sum"),
+    "q4": ("partition_order", "probe", "radix_order"),
+    "q13": ("partition_order", "probe", "radix_order"),
+    "q15": ("partition_order", "probe", "radix_order", "seg_sum"),
+    "q16": ("partition_order", "probe", "radix_order", "match_table"),
+    "q18": ("partition_order", "probe", "seg_sum"),
+    "q21": ("partition_order", "probe", "radix_order"),
+    "q5": ("partition_order", "probe"),
+    "q10": ("partition_order", "probe", "seg_sum"),
+    "q19": ("partition_order", "probe", "match_table"),
+    "q2": ("partition_order", "probe", "match_table", "seg_sum"),
+    "q17": ("partition_order", "probe", "match_table", "seg_sum"),
+    "q7": ("partition_order", "probe", "radix_order", "seg_sum"),
+    "q8": ("partition_order", "probe", "radix_order", "seg_sum"),
+    "q9": ("partition_order", "probe", "radix_order", "match_table",
+           "seg_sum"),
+    "q11": ("partition_order", "probe", "seg_sum"),
+    "q20": ("partition_order", "probe", "radix_order", "match_table",
+            "seg_sum")}}
+# the C7 queries (tests/test_torch_groupby.py's C6 paths)
+C7_QUERIES = (
+    "SELECT k, min(z) AS m FROM a GROUP BY k",
+    "SELECT k, min(z) AS m FROM (SELECT k, z FROM a) x GROUP BY k",
+    "SELECT k, min(z) AS m FROM a WHERE v > 0.0 GROUP BY k",
+    "SELECT k, min(z) AS m FROM a WHERE s = 'x' GROUP BY k",
+    "SELECT k, min(z) AS m FROM (SELECT k, z FROM a WHERE v > 0.0) x "
+    "GROUP BY k",
+    "SELECT k2, min(z) AS m FROM (SELECT k + 1 AS k2, z FROM a) x "
+    "GROUP BY k2",
+    "SELECT k2, min(z) AS m FROM (SELECT k * 1000 AS k2, z FROM a) x "
+    "GROUP BY k2",
+    "SELECT k2, min(z) AS m FROM (SELECT CAST(k AS int) AS k2, z FROM a) x "
+    "GROUP BY k2",
+    "SELECT y, min(z) AS m FROM (SELECT year(dt) AS y, z FROM a) x "
+    "GROUP BY y",
+    "SELECT k2, min(z) AS m FROM (SELECT k + 1 AS k2, substring(s, 1, 1) "
+    "AS c, z FROM a) x GROUP BY k2",
+    "SELECT a.k, min(b.w) AS m FROM a JOIN b ON a.k = b.k GROUP BY a.k",
+    "SELECT wide, min(z) AS m FROM a GROUP BY wide",
+    "SELECT k, dt, min(z) AS m FROM a GROUP BY k, dt",
+)
 # q11's fraction as TPC-H scales it (0.0001 / sf): the reference's literal
 # is the sf-1 value, which keeps no part at sf 10
 Q11_FRACTION = 0.0001 / SF
@@ -876,36 +936,95 @@ def phase_q5lite(dev):
 
 
 def _plan_runner(dev, plan_fn, conf=None):
-    """A query run: the plan through apply_overrides -> collect."""
+    """A query run: the plan through apply_overrides -> collect; returns
+    (its rows, the exec tree that ran)."""
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
 
-    return lambda: collect(apply_overrides(plan_fn(), conf, device=dev))
+    def run():
+        tree = apply_overrides(plan_fn(), conf, device=dev)
+        return collect(tree), tree
+    return run
 
 
-def _run_query(name, run, nk):
+def _tree_conf(conf, tree):
+    """``conf`` for the default (fused) or the unfused exec tree."""
+    return {**(conf or {}), FUSION: tree == "fused"}
+
+
+def _fused_reach(tree):
+    """The kernels a fused tree that ran must have launched: K1 where a
+    standalone chain (one that does not end in a sort) ran, K3 where a
+    chain join probed in hash mode; a fused exec that fell back to its
+    unfused subtree counts as that subtree. -> (kernels, summary)."""
+    from spark_rapids_tpu_torch.execs.fused import (FusedChainExec,
+                                                    SortStep, fused_nodes,
+                                                    fusion_summary)
+
+    need = set()
+    for n in fused_nodes(tree):
+        if n.fell_back:
+            continue
+        if isinstance(n, FusedChainExec) and \
+                not any(isinstance(s, SortStep) for s in n.chain.steps):
+            need.add("partition_order")
+        if "hash" in n.join_modes:
+            need.add("probe")
+    summary = fusion_summary(tree)
+    summary["join_modes"] = [m for n in fused_nodes(tree)
+                             for m in n.join_modes]
+    return need, summary
+
+
+def _run_query(name, run, nk, tree_kind="fused"):
     """One warm run, then a timed run with the launch counts set to 0
-    just before it and read just after. Returns (result, record)."""
+    just before it and read just after; it fails unless every kernel of
+    the path launched (``PATH_KERNELS`` of its tree, and for the fused
+    tree what its chains reach). Returns (result, record)."""
     import torch
 
     run()  # warm: caching allocator, library handles, built kernels
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases left alive
     nk.reset_launches()
     nk.record_sizes(True)
     t0 = time.perf_counter()
-    got = run()
+    got, tree = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     sizes = nk.record_sizes(False)
     launches = dict(nk.LAUNCHES)
-    missing = [k for k in PATH_KERNELS[name] if launches[k] <= 0]
+    need = set(PATH_KERNELS[tree_kind][name])
+    rec = {"phase": name, "tree": tree_kind, "sf": SF, "warm_wall_s": wall,
+           "held_bytes": held,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "k1_sizes": sizes.get("partition_order", [])}
+    if tree_kind == "fused":
+        reach, rec["fusion"] = _fused_reach(tree)
+        need |= reach
+    missing = sorted(k for k in need if launches[k] <= 0)
     if missing:
-        raise AssertionError(f"{name} never launched {missing}")
-    return got, {"phase": name, "sf": SF, "warm_wall_s": wall,
-                 "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
-                 "launches": launches,
-                 "k1_sizes": sizes.get("partition_order", [])}
+        print(json.dumps(rec))
+        raise AssertionError(f"{name} ({tree_kind}) never launched "
+                             f"{missing}")
+    return got, rec
+
+
+def _run_trees(name, make_run, nk, check, runs):
+    """The query on the default (fused) tree, then the unfused one, each
+    checked by ``check(rows)`` (its oracle) and printed; ``runs`` gets
+    both records (the fused one under ``name``). -> the fused rows."""
+    out = None
+    for tree_kind in TREES:
+        got, rec = _run_query(name, make_run(tree_kind), nk, tree_kind)
+        rec.update(check(got) or {})
+        print(json.dumps(rec))
+        runs[name if tree_kind == "fused" else f"{name} unfused"] = rec
+        if out is None:
+            out = got
+    return out
 
 
 def _check_columns(name, got, want):
@@ -921,37 +1040,41 @@ def _check_columns(name, got, want):
             raise AssertionError(f"{name}: column {col} differs")
 
 
-def phase_q26(dev, ss, item, want, nk):
+def phase_q26(dev, ss, item, want, nk, runs):
     from spark_rapids_tpu_torch.benchmarks import tpcxbb
 
-    got, rec = _run_query("q26", _plan_runner(dev, lambda: tpcxbb.q26(
-        ss, item)), nk)
-    _check_columns("q26", got, want)
-    rec.update(store_sales_rows=len(ss["ss_item_sk"]),
-               item_rows=len(item["i_item_sk"]),
-               result_rows=len(want["cid"]), matches_oracle=True)
-    print(json.dumps(rec))
-    return rec
+    def check(got):
+        _check_columns("q26", got, want)
+        return dict(store_sales_rows=len(ss["ss_item_sk"]),
+                    item_rows=len(item["i_item_sk"]),
+                    result_rows=len(want["cid"]), matches_oracle=True)
+
+    _run_trees("q26", lambda t: _plan_runner(
+        dev, lambda: tpcxbb.q26(ss, item), _tree_conf(None, t)), nk, check,
+        runs)
 
 
-def phase_q14(dev, lineitem, part, nk):
+def phase_q14(dev, lineitem, part, nk, runs):
     from spark_rapids_tpu_torch.benchmarks import tpch
 
     want = tpch.q14_numpy(lineitem, part)
-    got, rec = _run_query("q14", _plan_runner(dev, lambda: tpch.q14(
-        lineitem, part)), nk)
-    _check_columns("q14", got, want)
-    rec.update(lineitem_rows=len(lineitem["l_partkey"]),
-               part_rows=len(part["p_partkey"]),
-               promo_revenue=float(got["promo_revenue"][0]),
-               oracle=float(want["promo_revenue"][0]), matches_oracle=True)
-    print(json.dumps(rec))
-    return rec
+
+    def check(got):
+        _check_columns("q14", got, want)
+        return dict(lineitem_rows=len(lineitem["l_partkey"]),
+                    part_rows=len(part["p_partkey"]),
+                    promo_revenue=float(got["promo_revenue"][0]),
+                    oracle=float(want["promo_revenue"][0]),
+                    matches_oracle=True)
+
+    _run_trees("q14", lambda t: _plan_runner(
+        dev, lambda: tpch.q14(lineitem, part), _tree_conf(None, t)), nk,
+        check, runs)
 
 
-def phase_tpch(dev, name, tables, nk):
+def phase_tpch(dev, name, tables, nk, runs):
     """A TPC-H query of ``tpch.INPUTS`` at sf 10 against its numpy
-    oracle."""
+    oracle, on both trees."""
     import numpy as np
 
     from spark_rapids_tpu_torch.benchmarks import datagen, tpch
@@ -963,38 +1086,42 @@ def phase_tpch(dev, name, tables, nk):
     want = getattr(tpch, f"{name}_numpy")(*args)
     oracle_s = time.perf_counter() - t0
     conf = tpch.QUERY_CONF.get(name)
-    got, rec = _run_query(name, _plan_runner(
-        dev, lambda: getattr(tpch, name)(*args), conf), nk)
-    _check_columns(name, got, want)
-    rows = len(next(iter(want.values())))
-    if not rows or any(c[0] is None for c in want.values()):
-        raise AssertionError(f"{name} at sf {SF} must return rows")
-    run = _plan_runner(dev, lambda: getattr(tpch, name)(*args), conf)
-    if name == "q1":
-        rec.update(_groupby_profile(run))
-    if name == "q21":
-        rec.update(_aggregate_steps(run))
-    rec.update({f"{t}_rows": len(next(iter(tables[t].values())))
-                for t in tpch.INPUTS[name]})
-    if name == "q11":
-        rec.update(fraction=Q11_FRACTION)
-    rec.update(result_rows=rows, oracle_s=oracle_s, matches_oracle=True,
-               conf=conf)
-    if name == "q3":
-        # the reordered chain: filtered lineitem streams, filtered orders
-        # build the first join, filtered customer the second
-        orders, customer = tables["orders"], tables["customer"]
-        rec.update(orders_build_rows=int(
-            (orders["o_orderdate"] < datagen.days(tpch.Q3_DATE)).sum()),
-            customer_build_rows=int(np.isin(
-                customer["c_mktsegment"].codes,
-                np.flatnonzero(customer["c_mktsegment"].dictionary ==
-                               tpch.Q3_SEGMENT)).sum()))
-    print(json.dumps(rec))
-    if rec.get("index_add_ran"):
-        raise AssertionError(f"{name} ran index_add_: its float sums must "
-                             "take the dense path")
-    return rec
+
+    def check(got):
+        _check_columns(name, got, want)
+        rows = len(next(iter(want.values())))
+        if not rows or any(c[0] is None for c in want.values()):
+            raise AssertionError(f"{name} at sf {SF} must return rows")
+        rec = {f"{t}_rows": len(next(iter(tables[t].values())))
+               for t in tpch.INPUTS[name]}
+        if name == "q11":
+            rec.update(fraction=Q11_FRACTION)
+        rec.update(result_rows=rows, oracle_s=oracle_s,
+                   matches_oracle=True, conf=conf)
+        if name == "q3":
+            # the reordered chain: filtered lineitem streams, filtered
+            # orders build the first join, filtered customer the second
+            orders, customer = tables["orders"], tables["customer"]
+            rec.update(orders_build_rows=int(
+                (orders["o_orderdate"] < datagen.days(tpch.Q3_DATE)).sum()),
+                customer_build_rows=int(np.isin(
+                    customer["c_mktsegment"].codes,
+                    np.flatnonzero(customer["c_mktsegment"].dictionary ==
+                                   tpch.Q3_SEGMENT)).sum()))
+        return rec
+
+    _run_trees(name, lambda t: _plan_runner(
+        dev, lambda: getattr(tpch, name)(*args), _tree_conf(conf, t)), nk,
+        check, runs)
+    if name in ("q1", "q21"):  # the default tree, profiled
+        run = _plan_runner(dev, lambda: getattr(tpch, name)(*args), conf)
+        rec = {"phase": name, "tree": "fused"}
+        rec.update(_groupby_profile(run) if name == "q1" else
+                   _aggregate_steps(run))
+        print(json.dumps(rec))
+        if rec.get("index_add_ran"):
+            raise AssertionError(f"{name} ran index_add_: its float sums "
+                                 "must take the dense path")
 
 
 def _groupby_profile(run):
@@ -1067,13 +1194,15 @@ def _aggregate_steps(run):
         spent[key] += time.perf_counter() - t0
         return out
 
-    def aggregate(self, batch, specs, types):
+    def aggregate(self, batch, specs, types, live_mask=None):
         if specs is self.merge_specs:
             spent["merges"] += 1
             spent["largest_merge_rows"] = max(spent["largest_merge_rows"],
                                               batch.num_rows)
-            return timed("merge_s", orig_agg, self, batch, specs, types)
-        return timed("update_s", orig_agg, self, batch, specs, types)
+            return timed("merge_s", orig_agg, self, batch, specs, types,
+                         live_mask)
+        return timed("update_s", orig_agg, self, batch, specs, types,
+                     live_mask)
 
     agg_exec.HashAggregateExec._aggregate = aggregate
     agg_exec.concat_batches = lambda parts: timed("concat_s", orig_cat,
@@ -1372,17 +1501,26 @@ def phase_join_kinds(dev, lineitem, orders):
     return recs
 
 
-def phase_q22(dev, customer, orders, phone, nk):
-    import numpy as np
+def phase_q22(dev, customer, orders, phone, nk, runs):
     import torch
 
     from spark_rapids_tpu_torch.benchmarks import tpch
     from spark_rapids_tpu_torch.kernels import strings as kstr
 
     want = tpch.q22_numpy(customer, orders)
-    got, rec = _run_query("q22", _plan_runner(dev, lambda: tpch.q22(
-        customer, orders)), nk)
-    _check_columns("q22", got, want)
+
+    def check(got):
+        _check_columns("q22", got, want)
+        return dict(customer_rows=len(customer["c_custkey"]),
+                    orders_rows=len(orders["o_custkey"]),
+                    groups=len(want["cntrycode"]),
+                    cntrycode=list(got["cntrycode"]),
+                    numcust=[int(x) for x in got["numcust"]],
+                    matches_oracle=True)
+
+    _run_trees("q22", lambda t: _plan_runner(
+        dev, lambda: tpch.q22(customer, orders), _tree_conf(None, t)), nk,
+        check, runs)
     # the substring step on the c_phone dictionary, split: host encode of
     # the dictionary, the kernel, the host rebuild of the sliced one
     dic = customer["c_phone"].dictionary
@@ -1395,44 +1533,92 @@ def phase_q22(dev, customer, orders, phone, nk):
     t0 = time.perf_counter()
     new_dict, _ = kstr.rebuild_dictionary(out_chars)
     rebuild_s = time.perf_counter() - t0
-    rec.update(customer_rows=len(customer["c_custkey"]),
-               orders_rows=len(orders["o_custkey"]),
-               c_phone_entries=len(dic), cntrycode_entries=len(new_dict),
-               groups=len(want["cntrycode"]),
-               cntrycode=list(got["cntrycode"]),
-               numcust=[int(x) for x in got["numcust"]],
-               substring_kernel_ms=kernel_ms,
-               substring_host_rebuild_ms=rebuild_s * 1e3,
-               c_phone_host_encode_ms=encode_s * 1e3, matches_oracle=True)
-    print(json.dumps(rec))
-    return rec
+    print(json.dumps({"phase": "q22 substring step",
+                      "c_phone_entries": len(dic),
+                      "cntrycode_entries": len(new_dict),
+                      "substring_kernel_ms": kernel_ms,
+                      "substring_host_rebuild_ms": rebuild_s * 1e3,
+                      "c_phone_host_encode_ms": encode_s * 1e3}))
 
 
-def phase_q91(dev, tables, nk):
-    """q91 through the SQL front end at sf 10, against the numpy oracle."""
+def phase_q91(dev, tables, nk, runs):
+    """q91 through the SQL front end at sf 10, against the numpy oracle,
+    on both trees (the session's conf chooses)."""
     from spark_rapids_tpu_torch.api import Session
     from spark_rapids_tpu_torch.benchmarks import tpcds
+    from spark_rapids_tpu_torch.execs.base import collect
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
     from spark_rapids_tpu_torch.plan.nodes import InMemorySource
 
     want = tpcds.q91_numpy(tables)
 
-    def run():
-        s = Session(device=dev)
-        for name, cols in tables.items():
-            s.create_temp_view(name, InMemorySource(cols))
-        return s.sql(tpcds.Q91_SQL).collect()
+    def make_run(tree_kind):
+        def run():
+            s = Session(_tree_conf(None, tree_kind), device=dev)
+            for name, cols in tables.items():
+                s.create_temp_view(name, InMemorySource(cols))
+            tree = apply_overrides(s.sql(tpcds.Q91_SQL)._plan, s.conf,
+                                   device=dev)
+            return collect(tree), tree
+        return run
 
-    got, rec = _run_query("q91", run, nk)
-    _check_columns("q91", got, want)
-    if not len(want["returns_loss"]):
-        raise AssertionError("q91 at sf 10 must return groups")
-    rec.update({f"{name}_rows": len(next(iter(cols.values())))
-                for name, cols in tables.items()})
-    rec.update(groups=len(want["returns_loss"]),
-               returns_loss=[float(x) for x in got["returns_loss"]],
-               matches_oracle=True)
-    print(json.dumps(rec))
-    return rec
+    def check(got):
+        _check_columns("q91", got, want)
+        if not len(want["returns_loss"]):
+            raise AssertionError("q91 at sf 10 must return groups")
+        rec = {f"{name}_rows": len(next(iter(cols.values())))
+               for name, cols in tables.items()}
+        rec.update(groups=len(want["returns_loss"]),
+                   returns_loss=[float(x) for x in got["returns_loss"]],
+                   matches_oracle=True)
+        return rec
+
+    _run_trees("q91", make_run, nk, check, runs)
+
+
+def phase_c7(dev):
+    """The C7 queries (a small-range key on the dense path through a
+    string filter, a filter below a projection and a join's stream side,
+    where the reference's fused tree keeps its statistics) on the card
+    and on the CPU, both default sessions: every value bit for bit."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+    from spark_rapids_tpu_torch.plan.nodes import InMemorySource
+
+    r = np.random.default_rng(6)
+    n = 300
+    a = {"k": r.integers(-5, 20, n).astype(np.int64),
+         "v": r.standard_normal(n), "z": np.full(n, -0.0),
+         "s": np.array(["x", "y"], dtype=object)[r.integers(0, 2, n)],
+         "dt": r.integers(9000, 9060, n).astype(np.int32),
+         "wide": r.integers(0, 5000, n).astype(np.int64)}
+    b = {"k": np.arange(-5, 20, dtype=np.int64), "w": np.full(25, -0.0)}
+    types = {"k": dt.INT64, "v": dt.FLOAT64, "z": dt.FLOAT64,
+             "s": dt.STRING, "dt": dt.DATE, "wide": dt.INT64,
+             "w": dt.FLOAT64}
+    sessions = [Session(device=dev), Session(device="cpu")]
+    for s in sessions:
+        for name, cols in (("a", a), ("b", b)):
+            s.create_temp_view(name, InMemorySource(
+                dict(cols), Schema(list(cols), [types[c] for c in cols])))
+    signs = []
+    for text in C7_QUERIES:
+        card, cpu = (s.sql(text).collect() for s in sessions)
+        for col in cpu:
+            g, w = np.asarray(card[col]), np.asarray(cpu[col])
+            if g.dtype.kind == "f":
+                g, w = g.view(np.int64), w.view(np.int64)
+            if list(g) != list(w):
+                raise AssertionError(f"C7 {text!r}: column {col} differs "
+                                     "on the card")
+        signs.append(bool(np.signbit(np.asarray(card["m"],
+                                                np.float64)).all()))
+    print(json.dumps({"phase": "c7", "queries": len(C7_QUERIES),
+                      "card_equal_cpu": True,
+                      "min_is_negative_zero": signs}))
 
 
 def phase_k1_sizes(dev, runs, rec):
@@ -1549,23 +1735,25 @@ def main() -> int:
         enter("q5lite")
         phase_q5lite(dev)
         enter("q26")
-        runs["q26"] = phase_q26(dev, ss, item, want, nk)
+        phase_q26(dev, ss, item, want, nk, runs)
         del ss, item
         enter("q14")
-        runs["q14"] = phase_q14(dev, lineitem, part, nk)
+        phase_q14(dev, lineitem, part, nk, runs)
         for name in (q for q in tpch.INPUTS if q not in ("q14", "q22")):
             enter(name)
-            runs[name] = phase_tpch(dev, name, tables, nk)
+            phase_tpch(dev, name, tables, nk, runs)
         enter("groupby")
         recs["seg_sum"] = phase_groupby(dev, lineitem, orders, customer)
         enter("join kinds")
         phase_join_kinds(dev, lineitem, orders)
         del lineitem, tables
         enter("q22")
-        runs["q22"] = phase_q22(dev, customer, orders, phone, nk)
+        phase_q22(dev, customer, orders, phone, nk, runs)
         del customer, orders
         enter("q91")
-        runs["q91"] = phase_q91(dev, q91_tables, nk)
+        phase_q91(dev, q91_tables, nk, runs)
+        enter("c7")
+        phase_c7(dev)
         enter("k1 launch sizes")
         phase_k1_sizes(dev, runs, recs["partition_order"])
         enter("end")

@@ -9,14 +9,16 @@ launches), then one under
 not native work, so its shares only point at candidates).
 
     python -m spark_rapids_tpu_torch.benchmarks.profile_query \\
-        [--query q26|q14|q22|q91|q1|q3|q4|...] [--sf 10]
+        [--query q26|q14|q22|q91|q1|q3|q4|...] [--sf 10] [--unfused]
 
+The default exec tree is fused; ``--unfused`` profiles the unfused one.
 Prints one JSON line per query. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import cProfile
+import functools
 import json
 import pstats
 import subprocess
@@ -30,15 +32,24 @@ from spark_rapids_tpu_torch.benchmarks import tpch
 QUERIES = ("q26", "q91") + tuple(tpch.INPUTS)
 
 
+@functools.lru_cache(maxsize=None)
+def _tpch_table(name: str, sf: float):
+    """A TPC-H table, generated once per process (the queries read it and
+    change nothing)."""
+    from spark_rapids_tpu_torch.benchmarks import datagen
+
+    return datagen.GENERATORS[name](sf)
+
+
 def _plan_fn(query: str, sf: float):
-    from spark_rapids_tpu_torch.benchmarks import datagen, tpcds, tpcxbb
+    from spark_rapids_tpu_torch.benchmarks import tpcds, tpcxbb
 
     if query == "q26":
         ss, item = tpcds.gen_store_sales(sf), tpcds.gen_item(sf)
         return lambda: tpcxbb.q26(ss, item)
     if query == "q91":
         return _q91_plan_fn(tpcds.q91_tables(sf))
-    tables = [datagen.GENERATORS[t](sf) for t in tpch.INPUTS[query]]
+    tables = [_tpch_table(t, sf) for t in tpch.INPUTS[query]]
     return lambda: getattr(tpch, query)(*tables)
 
 
@@ -57,7 +68,8 @@ def _q91_plan_fn(tables):
     return plan
 
 
-def profile(query: str, sf: float, top: int) -> dict:
+def profile(query: str, sf: float, top: int, unfused: bool = False
+            ) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -69,7 +81,7 @@ def profile(query: str, sf: float, top: int) -> dict:
 
     plan_fn = _plan_fn(query, sf)
 
-    conf = tpch.QUERY_CONF.get(query)
+    conf = tpch.query_conf(query, fused=not unfused)
 
     def run():
         collect(apply_overrides(plan_fn(), conf))
@@ -98,7 +110,8 @@ def profile(query: str, sf: float, top: int) -> dict:
                      f":{fn[1]}:{fn[2]}", nc)
                     for fn, (_cc, nc, tt, _ct, _callers) in stats.items()),
                    reverse=True)
-    return {"query": query, "sf": sf, "wall_s": wall,
+    return {"query": query, "sf": sf,
+            "tree": "unfused" if unfused else "fused", "wall_s": wall,
             "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall if wall else None,
             "launches": launches,
@@ -116,6 +129,8 @@ def main() -> int:
     ap.add_argument("--query", choices=QUERIES, action="append")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--unfused", action="store_true",
+                    help="profile the unfused exec tree")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_query needs a CUDA device")
@@ -124,7 +139,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     for query in args.query or ["q26", "q14", "q22", "q91"]:
-        rec = profile(query, args.sf, args.top)
+        rec = profile(query, args.sf, args.top, args.unfused)
         rec["card"] = card
         print(json.dumps(rec))
     return 0

@@ -116,6 +116,16 @@ INPUTS = {"q1": ("lineitem",), "q3": ("customer", "orders", "lineitem"),
 QUERY_CONF = {"q5": {"rapids.tpu.sql.optimizer.enabled": False}}
 
 
+def query_conf(query: str, fused: bool = True) -> dict:
+    """The conf a query runs with (any of the port's TPC queries): its
+    ``QUERY_CONF`` on the default, fused, exec tree, or with
+    ``rapids.tpu.sql.fusion.enabled`` false on the unfused one."""
+    conf = dict(QUERY_CONF.get(query, {}))
+    if not fused:
+        conf["rapids.tpu.sql.fusion.enabled"] = False
+    return conf
+
+
 def ref(i, t):
     return BoundReference(i, t)
 

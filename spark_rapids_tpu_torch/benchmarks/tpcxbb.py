@@ -1,5 +1,7 @@
 """TPCx-BB q26 over in-memory tables (the counterpart of
-spark_rapids_tpu/benchmarks/tpcxbb.py ``q26``), and a numpy oracle."""
+spark_rapids_tpu/benchmarks/tpcxbb.py ``q26``), and a numpy oracle. The
+plan runs on the default (fused) exec tree; ``tpch.query_conf("q26",
+fused=False)`` is the conf of the unfused one."""
 from __future__ import annotations
 
 from typing import Dict

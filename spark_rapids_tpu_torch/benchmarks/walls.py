@@ -15,8 +15,14 @@ host-encoded strings; q4, q13, q15, q16, q18 and q21 since the outer,
 semi and full joins; the other ten TPC-H queries since the date and
 cast expressions, q5 in its written join order, ``tpch.QUERY_CONF``).
 ``--query q5lite`` times the q5lite step (a fused filter and a group-by
-of 4M rows over 65,536 keys) on data already on the card. Prints one JSON line per query with the card's name and
-power limit. Needs a CUDA device.
+of 4M rows over 65,536 keys) on data already on the card. The queries
+run on the default exec tree, which is fused;
+``--unfused`` runs them with ``rapids.tpu.sql.fusion.enabled`` false
+(pass it only to a tree that knows the key: an older one is unfused
+anyway). Prints one JSON line per query with the card's name and
+power limit: per timed run its wall, the device memory still allocated
+when it starts (``held_bytes``: what earlier runs left alive) and its
+peak allocation. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,10 +32,10 @@ import subprocess
 import time
 
 
-def _runner(query: str, sf: float):
+def _runner(query: str, sf: float, unfused: bool = False):
     """One run of ``query``: the q5lite step (its 4M rows, whatever
     ``sf``) over data already on the card, or the query's plan through
-    apply_overrides -> collect."""
+    apply_overrides -> collect (``unfused``: on the unfused tree)."""
     import torch
 
     if query == "q5lite":
@@ -44,7 +50,9 @@ def _runner(query: str, sf: float):
 
     plan_fn = _plan_fn(query, sf)
     # a tree older than the date and cast expressions has no QUERY_CONF
-    conf = getattr(tpch, "QUERY_CONF", {}).get(query)
+    conf = dict(getattr(tpch, "QUERY_CONF", {}).get(query) or {})
+    if unfused:
+        conf["rapids.tpu.sql.fusion.enabled"] = False
     return lambda: collect(apply_overrides(plan_fn(), conf, device="cuda"))
 
 
@@ -58,6 +66,8 @@ def main() -> int:
     ap.add_argument("--query", action="append")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--repeat", type=int, default=3)
+    ap.add_argument("--unfused", action="store_true",
+                    help="run the unfused exec tree")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("walls needs a CUDA device")
@@ -66,16 +76,22 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     for query in args.query or ["q26", "q14", "q22"]:
-        run = _runner(query, args.sf)
-        walls = []
+        run = _runner(query, args.sf, args.unfused)
+        walls, held, peaks = [], [], []
         for i in range(args.repeat + 1):
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             if i:
                 walls.append(time.perf_counter() - t0)
+                held.append(before)
+                peaks.append(torch.cuda.max_memory_allocated())
         print(json.dumps({"query": query, "sf": args.sf, "warm_wall_s": walls,
+                          "held_bytes": held, "peak_allocated_bytes": peaks,
+                          "tree": "unfused" if args.unfused else "default",
                           "package": spark_rapids_tpu_torch.__file__,
                           "card": card}))
     return 0

@@ -8,7 +8,13 @@ projection evaluates each aggregate over its partials.
 With no grouping keys every step is a whole-batch reduction to one row,
 and an empty input still yields one row: count 0, every other aggregate
 null (the reference's ``_empty_global_partials``). A distinct aggregate
-must have been rewritten by ``plan/optimizer`` first."""
+must have been rewritten by ``plan/optimizer`` first.
+
+Two hooks serve the fused execs (``execs/fused.py``): ``_update_inputs``
+gives each batch's update inputs with a live mask (a fused aggregate's
+chain leaves its rows in place and masks the dead ones), and
+``defer_final`` makes the exec yield its raw (keys..., partials...)
+for a chain that took over the final projection."""
 from __future__ import annotations
 
 from typing import Iterator, List
@@ -30,10 +36,16 @@ from spark_rapids_tpu_torch.plan.nodes import AggCall
 
 
 class HashAggregateExec(TorchExec):
+    #: yield (keys..., partials...) unfinished: set by the fusion pass
+    #: when the consuming chain applies the final projection
+    defer_final = False
+
     def __init__(self, grouping: List[Expression], aggs: List[AggCall],
                  child: TorchExec, schema: Schema, device):
         super().__init__([child], schema)
         self.device = device
+        self.grouping = list(grouping)
+        self.aggs = list(aggs)
         nkeys = len(grouping)
         # input projection: keys, then each aggregate's input once
         self.input_exprs: List[Expression] = list(grouping)
@@ -68,12 +80,23 @@ class HashAggregateExec(TorchExec):
             final.append(Alias(call.fn.evaluate(refs), call.name))
         self.final_exprs = final
         self.nkeys = nkeys
+        self.partial_types = self.merge_types[nkeys:]
 
-    def _aggregate(self, batch, specs, types) -> ColumnarBatch:
+    def _aggregate(self, batch, specs, types, live_mask=None
+                   ) -> ColumnarBatch:
         if not self.nkeys:
-            return reduce_aggregate(batch, specs, types, self.device)[0]
+            return reduce_aggregate(batch, specs, types, self.device,
+                                    live_mask)[0]
         return groupby_aggregate(batch, list(range(self.nkeys)), specs,
-                                 types)[0]
+                                 types, live_mask)[0]
+
+    def _update_inputs(self, b: ColumnarBatch):
+        """(the batch's update inputs, live mask or None)."""
+        return project(b, self.input_exprs, self.device), None
+
+    def merge_schema(self) -> Schema:
+        return Schema([f"_m{i}" for i in range(len(self.merge_types))],
+                      self.merge_types)
 
     def _empty_global_partials(self) -> ColumnarBatch:
         """One row of partials over zero rows: counts 0, the rest null."""
@@ -93,14 +116,20 @@ class HashAggregateExec(TorchExec):
         for b in self.children[0].execute():
             if b.num_rows == 0:
                 continue
-            part = self._aggregate(project(b, self.input_exprs, self.device),
-                                   self.update_specs, self.input_types)
+            inputs, mask = self._update_inputs(b)
+            if mask is not None and not bool(mask.any()):
+                continue  # no live row: its partial would change nothing
+            part = self._aggregate(inputs, self.update_specs,
+                                   self.input_types, mask)
             running = part if running is None else self._aggregate(
                 concat_batches([running, part]), self.merge_specs,
                 self.merge_types)
         if running is None:
             if self.nkeys:
-                yield ColumnarBatch.empty(self.schema, self.device)
+                yield ColumnarBatch.empty(
+                    self.merge_schema() if self.defer_final
+                    else self.schema, self.device)
                 return
             running = self._empty_global_partials()
-        yield project(running, self.final_exprs, self.device)
+        yield running if self.defer_final else \
+            project(running, self.final_exprs, self.device)

@@ -2,22 +2,18 @@
 spark_rapids_tpu/execs/basic.py)."""
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+from typing import Iterator, List
 
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch, Schema,
                                                    batch_from_numpy)
 from spark_rapids_tpu_torch.columnar.column import HostRange
 from spark_rapids_tpu_torch.execs.base import TorchExec
-from spark_rapids_tpu_torch.expressions import arithmetic as ar
-from spark_rapids_tpu_torch.expressions.base import (
-    Alias, BoundReference, ColV, EvalContext, Expression, Literal,
-    broadcast)
-from spark_rapids_tpu_torch.expressions.cast import Cast
-from spark_rapids_tpu_torch.expressions.datetime import Year
+from spark_rapids_tpu_torch.expressions.base import (EvalContext,
+                                                     Expression, broadcast)
+from spark_rapids_tpu_torch.expressions.compiler import derive_stats, ranged
 from spark_rapids_tpu_torch.io.hoststrings import HostStrings
 from spark_rapids_tpu_torch.ops.filter import compact_batch
 from spark_rapids_tpu_torch.plan.nodes import InMemorySource
@@ -65,14 +61,9 @@ class ScanExec(TorchExec):
             batch = batch_from_numpy(cols, self.schema.types, valids, dics,
                                      device=self.device)
             for c in batch.columns:
-                if _ranged(c.dtype):
+                if ranged(c.dtype):
                     c.stats = HostRange(c.data, c.validity)
             yield batch
-
-
-def _ranged(t: dt.DType) -> bool:
-    """Whether a column of type ``t`` may carry a ``HostRange``."""
-    return t.is_integral or t in (dt.DATE, dt.TIMESTAMP)
 
 
 class FilterExec(TorchExec):
@@ -149,89 +140,6 @@ def project(batch: ColumnarBatch, exprs: List[Expression], device
     cols = [broadcast(e.eval(ctx), ctx).to_column() for e in exprs]
     if all(e.device_only for e in exprs):
         for c, e in zip(cols, exprs):
-            if _ranged(c.dtype):
+            if ranged(c.dtype):
                 c.stats = derive_stats(e, ctx.columns)
     return ColumnarBatch(cols, batch.num_rows)
-
-
-def _range(r: Optional[HostRange]):
-    return None if r is None else r.get()
-
-
-def derive_stats(e: Expression, cols: List[ColV]) -> Optional[HostRange]:
-    """The range of a projected expression where the reference's
-    ``derive_stats`` computes one: a column's own (not reduced here), a
-    cast between discrete types, ``+ - *`` by an integer literal, the
-    year of a date. None everywhere else."""
-    while isinstance(e, Alias):
-        e = e.children[0]
-    if isinstance(e, BoundReference):
-        return cols[e.ordinal].stats
-    if isinstance(e, Cast):
-        src = e.children[0].dtype
-        if not _ranged(e.to) or (src is dt.TIMESTAMP) != \
-                (e.to is dt.TIMESTAMP):
-            return None  # a date <-> timestamp cast scales
-        s = _range(derive_stats(e.children[0], cols))
-        if s is None:
-            return None
-        if e.to.is_integral:
-            info = np.iinfo(e.to.np_dtype)
-            if s[0] < info.min or s[1] > info.max:
-                return None  # it would wrap
-        return HostRange.known(*s)
-    if isinstance(e, (ar.Add, ar.Subtract, ar.Multiply)):
-        return _arith_range(e, cols)
-    if isinstance(e, Year):
-        if e.children[0].dtype is not dt.DATE:
-            return None
-        s = _range(derive_stats(e.children[0], cols))
-        if s is None:
-            return None
-        base = np.datetime64("1970-01-01", "D")
-        y = [int((base + np.timedelta64(v, "D")).astype("datetime64[Y]")
-                 .astype(int)) + 1970 for v in s]
-        return HostRange.known(*y)  # year() is monotone over days
-    return None
-
-
-_I64 = (-(1 << 63), (1 << 63) - 1)
-
-
-def _arith_range(e: Expression, cols: List[ColV]) -> Optional[HostRange]:
-    """``+ - *`` with an integer literal on one side."""
-    sides = []
-    for c in e.children:
-        if isinstance(c, Literal) and isinstance(c.value, int):
-            sides.append(("lit", c.value))
-        else:
-            s = _range(derive_stats(c, cols))
-            if s is None:
-                return None
-            sides.append(("col", s))
-    kinds = [k for k, _ in sides]
-    add, sub = isinstance(e, ar.Add), isinstance(e, ar.Subtract)
-    if kinds == ["lit", "lit"]:
-        a, b = sides[0][1], sides[1][1]
-        v = a + b if add else a - b if sub else a * b
-        lo, hi = v, v
-    elif "lit" not in kinds:
-        return None  # column-op-column bounds are not tracked
-    elif kinds[0] == "lit":
-        lit, (lo, hi) = sides[0][1], sides[1][1]
-        lo, hi = ((lit - hi, lit - lo) if sub else (lo + lit, hi + lit)
-                  if add else tuple(sorted((lo * lit, hi * lit))))
-    else:
-        (lo, hi), lit = sides[0][1], sides[1][1]
-        lo, hi = ((lo - lit, hi - lit) if sub else (lo + lit, hi + lit)
-                  if add else tuple(sorted((lo * lit, hi * lit))))
-    # the bounds must hold in the expression's type: int32 arithmetic
-    # that wraps on the device must not advertise unwrapped bounds
-    if e.dtype.is_integral:
-        info = np.iinfo(e.dtype.np_dtype)
-        bounds = (int(info.min), int(info.max))
-    else:
-        bounds = _I64
-    if lo < bounds[0] or hi > bounds[1]:
-        return None
-    return HostRange.known(lo, hi)

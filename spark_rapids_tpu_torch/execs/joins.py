@@ -5,10 +5,15 @@ it. Inner and left joins emit stream then build columns, semi and anti
 joins the stream columns only; only an inner join takes a residual
 condition, applied as a filter after the join, as the reference asserts.
 A full join emits each unmatched build row once, so, as in the
-reference, its stream side is drained into one batch first."""
+reference, its stream side is drained into one batch first.
+
+The join keeps its drained build (``build_batch``), as the reference's
+broadcast exchange keeps its batch, and the builds prepared from it
+(``prepared``): a fused chain that probes the build
+(``execs/fused.py``) and this join, its fallback, drain it once."""
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.execs.base import TorchExec
@@ -39,16 +44,28 @@ class BroadcastHashJoinExec(TorchExec):
         if condition is not None and kind != "inner":
             raise NotImplementedError(
                 f"a {kind} join with a residual condition is not ported")
+        self.kind = kind
         self.join_type = KIND_MAP[kind]
         self.condition = condition
         self.left_keys = left_keys
         self.right_keys = right_keys
         self.device = device
+        self._build: Optional[ColumnarBatch] = None
+        #: the fused chains' preparations of the build, by key spec
+        self.prepared: Dict[tuple, object] = {}
+
+    def build_batch(self) -> ColumnarBatch:
+        """The build child's rows as one batch, drained once (one batch
+        keeps its columns' statistics; a concatenation has none, as in
+        the reference)."""
+        if self._build is None:
+            self._build = _drain(self.children[1], self.device)
+        return self._build
 
     def execute(self) -> Iterator[ColumnarBatch]:
         left_types = list(self.children[0].schema.types)
         right_types = list(self.children[1].schema.types)
-        build = _drain(self.children[1], self.device)
+        build = self.build_batch()
         prepared = prepare_build(build, self.right_keys, right_types,
                                  [left_types[o] for o in self.left_keys])
         stream = [_drain(self.children[0], self.device)] \

@@ -8,8 +8,9 @@ AND of its inputs' validities.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -41,12 +42,16 @@ EvalValue = Union[ColV, Scalar]
 
 
 class EvalContext:
-    """What an expression sees: the batch's columns and its row count."""
+    """What an expression sees: the batch's columns and its row count;
+    inside a fused chain also ``aux``, the per-batch dictionary positions
+    of its string predicates (``execs.fused._AuxStringPred``)."""
 
-    def __init__(self, columns: List[ColV], num_rows: int, device):
+    def __init__(self, columns: List[ColV], num_rows: int, device,
+                 aux: tuple = ()):
         self.columns = columns
         self.num_rows = num_rows
         self.device = device
+        self.aux = aux
 
     @staticmethod
     def from_batch(batch: ColumnarBatch, device) -> "EvalContext":
@@ -74,6 +79,31 @@ class Expression:
         such nodes derives its columns' ranges, and a filter of one
         feeds the aggregate above it as a live mask."""
         return all(c.device_only for c in self.children)
+
+    @property
+    def deterministic(self) -> bool:
+        """False for a node whose value depends on more than its row (the
+        reference's nondeterministic expressions; none is ported yet)."""
+        return all(c.deterministic for c in self.children)
+
+    def transform(self, fn: Callable[["Expression"], "Expression"]
+                  ) -> "Expression":
+        """``fn`` applied bottom up; a node whose children change is
+        copied, the tree given is left as it is."""
+        kids = [c.transform(fn) for c in self.children]
+        node = self
+        if any(k is not c for k, c in zip(kids, self.children)):
+            node = copy.copy(self)
+            node.children = kids
+        return fn(node)
+
+    def collect(self, pred: Callable[["Expression"], bool]
+                ) -> List["Expression"]:
+        """Every node of the tree for which ``pred`` holds, pre-order."""
+        out = [self] if pred(self) else []
+        for c in self.children:
+            out.extend(c.collect(pred))
+        return out
 
     def __repr__(self) -> str:  # pragma: no cover
         name = type(self).__name__

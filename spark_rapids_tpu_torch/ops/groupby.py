@@ -200,11 +200,16 @@ def _zeros_ordered(x: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_aggregate(batch: ColumnarBatch, aggs: List[AggSpec],
-                     dtypes: List[dt.DType], device
+                     dtypes: List[dt.DType], device,
+                     live_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[ColumnarBatch, List[dt.DType]]:
     """Whole-batch reduction (no keys): a 1-row batch of the aggregates
     (the reference's ``reduce_aggregate``). Every aggregate but a count
-    over no valid rows is null; the results stay on the device."""
+    over no valid rows is null; the results stay on the device. Rows
+    masked out by ``live_mask`` are dropped first, so the sums add the
+    live rows in the order a compacted batch holds them."""
+    if live_mask is not None:
+        batch = batch.gather(torch.nonzero(live_mask).squeeze(1))
     n = batch.num_rows
     out_cols: List[Column] = []
     out_types: List[dt.DType] = []

@@ -19,6 +19,13 @@ Null keys never match: build and probe nulls take disjoint sentinel
 hashes, and exact verification rejects a null key, so a left, anti or
 full join keeps the rows with a null key unmatched. The build side is
 prepared once and probed by every stream batch.
+
+A fused chain's join (``execs/fused.py``) probes a build whose key
+hashes are unique, so each stream row has at most one candidate:
+``prepare_unique_build`` (the reference's ``_prep_build_arrays``) sorts
+the build by hash, raises the duplicate flag from the hashes, and makes
+either a dense inverse table over the single integral key's span or the
+K3 probe table.
 """
 from __future__ import annotations
 
@@ -79,6 +86,105 @@ def _key_hashes(batch: ColumnarBatch, ordinals: List[int],
     if any_null is not None:
         h = torch.where(any_null, torch.full_like(h, null_sentinel), h)
     return h
+
+
+def hash_keys(keys, types: List[dt.DType], targets: List[dt.DType],
+              sentinel: int) -> torch.Tensor:
+    """Row hashes of ``keys`` ((data, validity) pairs of ``types``), each
+    cast to its pair's comparison type first; a row with any null key
+    takes ``sentinel`` (the reference's fused ``_hash_keys``)."""
+    vals = []
+    any_null = None
+    for (d, v), t, tgt in zip(keys, types, targets):
+        if tgt is dt.STRING:
+            raise AssertionError("string join keys are not fusable")
+        h = hashing._numeric_to_int64(
+            d if t is tgt else d.to(tgt.torch_dtype), tgt)
+        if v is not None:
+            any_null = ~v if any_null is None else (any_null | ~v)
+            h = torch.where(v, h, torch.full_like(h, hashing._NULL_HASH))
+        vals.append(h)
+    h = hashing._combine(vals)
+    if any_null is not None:
+        h = torch.where(any_null, torch.full_like(h, sentinel), h)
+    return h
+
+
+_MAXH = (1 << 63) - 1
+
+
+class UniqueBuild(NamedTuple):
+    """A build prepared for probes that find at most one row (the
+    reference's ``PreparedBuild``). ``ok`` False: two matchable rows
+    share a key hash, and the chain falls back to its unfused subtree.
+    ``h_sorted``: the hashes ascending, the rows that cannot match (a
+    null key) last as int64 max; ``datas``/``vals`` the build columns in
+    that order; ``n_valid`` the matchable rows. ``table`` (dense mode):
+    ``table[key - dense_lo]`` is the sorted row of that key, -1 absent;
+    else ``ptable`` is K3's probe table over the matchable hashes."""
+
+    ok: bool
+    h_sorted: Optional[torch.Tensor] = None
+    datas: tuple = ()
+    vals: tuple = ()
+    n_valid: int = 0
+    table: Optional[torch.Tensor] = None
+    dense_lo: int = 0
+    ptable: Optional[kjoin.ProbeTable] = None
+
+
+def prepare_unique_build(build: ColumnarBatch, key_ords: List[int],
+                         types: List[dt.DType], hash_types: List[dt.DType],
+                         span_max: int) -> UniqueBuild:
+    """Hash and sort the build, flag repeated hashes (the reference's
+    test: hashes, not keys, so two keys of one hash fall back), and make
+    the dense table when the single integral key's span, quantized, is
+    at most ``span_max``, else K3's table. The span comes from the key
+    column's statistics when it has them, else from one reduction of
+    its matchable rows."""
+    from spark_rapids_tpu_torch.ops.groupby import quantize_range
+
+    datas = [c.data for c in build.columns]
+    vals = [c.validity for c in build.columns]
+    h = hash_keys([(datas[o], vals[o]) for o in key_ords],
+                  [types[o] for o in key_ords], hash_types, _BUILD_NULL)
+    matchable = h != _BUILD_NULL
+    h_l = torch.where(matchable, h, torch.full_like(h, _MAXH))
+    sh, order = torch.sort(h_l, stable=True)
+    valid_s = sh != _MAXH
+    dup = bool(((sh[1:] == sh[:-1]) & valid_s[:-1]).any()) \
+        if sh.shape[0] > 1 else False
+    if dup:
+        return UniqueBuild(ok=False)
+    n_valid = int(valid_s.sum())
+    sdatas = tuple(d[order] for d in datas)
+    svals = tuple(None if v is None else v[order] for v in vals)
+    want_range = span_max > 0 and len(key_ords) == 1 and (
+        hash_types[0].is_integral or
+        hash_types[0] in (dt.DATE, dt.TIMESTAMP, dt.BOOLEAN))
+    rng = None
+    if want_range and n_valid:
+        st = build.columns[key_ords[0]].stats
+        st = None if st is None else st.get()
+        if st is not None:
+            qlo, qhi = quantize_range(int(st[0]), int(st[1]))
+            if qhi - qlo + 1 <= span_max:
+                rng = (qlo, qhi)
+        if rng is None:
+            kd = sdatas[key_ords[0]][:n_valid].to(torch.int64)
+            lo, hi = torch.stack([kd.min(), kd.max()]).tolist()
+            qlo, qhi = quantize_range(int(lo), int(hi))
+            if qhi - qlo + 1 <= span_max:
+                rng = (qlo, qhi)
+    if rng is not None:
+        span = rng[1] - rng[0] + 1
+        keys = sdatas[key_ords[0]][:n_valid].to(torch.int64) - rng[0]
+        table = torch.full((span,), -1, dtype=torch.int32, device=sh.device)
+        table[keys] = torch.arange(n_valid, dtype=torch.int32,
+                                   device=sh.device)
+        return UniqueBuild(True, sh, sdatas, svals, n_valid, table, rng[0])
+    return UniqueBuild(True, sh, sdatas, svals, n_valid,
+                       ptable=kjoin.build_table(sh[:n_valid]))
 
 
 class PreparedBuild(NamedTuple):

@@ -131,6 +131,21 @@ def lexsort_indices(cols: Sequence[ColPair], dtypes: List[dt.DType],
     return stable_lexsort(order_key_arrays(cols, dtypes, specs, live_mask))
 
 
+def sort_with_payloads(cols: Sequence[ColPair], dtypes: List[dt.DType],
+                       specs: List[SortKeySpec],
+                       payloads: Sequence[torch.Tensor],
+                       live_mask: Optional[torch.Tensor] = None
+                       ) -> List[torch.Tensor]:
+    """``payloads`` in the stable order of ``specs``, rows masked out by
+    ``live_mask`` last (the reference's ``sort_with_payloads``): ties
+    keep row order, nulls, NaN and -0.0 order as in every other sort
+    here. Like the reference, the permutation comes from the radix
+    kernel where every key is integral (``lexsort_indices``), else from
+    the multi-key stable sort, and gathers each payload."""
+    perm = lexsort_indices(cols, dtypes, specs, live_mask)
+    return [p[perm] for p in payloads]
+
+
 def equality_parts(data: torch.Tensor, validity: Optional[torch.Tensor],
                    dtype: dt.DType
                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:

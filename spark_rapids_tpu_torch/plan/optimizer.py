@@ -1,7 +1,20 @@
-"""Greedy join reordering and the distinct-aggregate rewrite (the
-counterpart of those parts of spark_rapids_tpu/plan/optimizer.py, which
-the reference's ``apply_overrides`` runs by default, fusion and adaptive
-execution off included, in this order).
+"""The reference's plan optimizer (the counterpart of
+spark_rapids_tpu/plan/optimizer.py's ``optimize``, which its
+``apply_overrides`` runs by default, fusion and adaptive execution off
+included): ``collapse_project``, ``push_filters_below_joins``, the greedy
+join order and the distinct-aggregate rewrite, in the reference's order.
+
+``collapse_project`` merges Project(Project(x)) into one projection over
+x (the outer expressions rewritten over the inner ones, unless an inner
+expression that is not a bare reference would be computed twice),
+Filter(Filter(x)) into one conjunctive filter, and puts a filter over a
+projection below it, its condition rewritten through the projection.
+``push_filters_below_joins`` moves each conjunct of a filter over a join
+that reads one side only below the join, where the join kind allows it
+(not a left join's right side, nothing of a full join). These decide
+which filters and projections sit next to each other, and so which
+chains the fusion pass (``execs/fused.py``) forms, and which float
+products meet an add in one expression (``expressions/folding.py``).
 
 A maximal chain of condition-free inner equi-joins over three or more
 relations is rebuilt left-deep: it starts from the relation of most
@@ -20,13 +33,7 @@ averages, minima and maxima beside it are computed per (keys, x) and
 merged, as the reference does. Distinct aggregates over more than one
 input are refused, where the reference falls back to its CPU engine.
 
-The reference's ``optimize`` also runs ``collapse_project`` and
-``push_filters_below_joins`` twice before the reorder and
-``collapse_project`` after it; those passes are not ported, so
-a plan whose filters sit above its joins can be estimated, and ordered,
-otherwise than there. The plans the port runs (TPC-H q3, TPC-DS q91 as
-``plan_statement`` gives it) are held to the reference's order in
-``tests/test_torch_tpch.py``.
+Every pass keeps a subtree that occurs twice (a CTE) one object.
 """
 from __future__ import annotations
 
@@ -38,11 +45,140 @@ from spark_rapids_tpu_torch.expressions import aggregates as aggfn
 from spark_rapids_tpu_torch.expressions.arithmetic import Divide
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Expression, Literal)
+from spark_rapids_tpu_torch.expressions.compiler import (substitute,
+                                                         unwrap_alias)
 from spark_rapids_tpu_torch.expressions.conditional import If
-from spark_rapids_tpu_torch.expressions.predicates import IsNotNull
+from spark_rapids_tpu_torch.expressions.predicates import And, IsNotNull
 from spark_rapids_tpu_torch.plan import nodes as pn
 
 _FILTER_SELECTIVITY = 0.3
+
+
+def optimize(plan: pn.PlanNode) -> pn.PlanNode:
+    """The reference's ``optimize``: collapse, push, collapse, push,
+    reorder, collapse, then the distinct rewrite."""
+    plan = collapse_project(plan)
+    plan = push_filters_below_joins(plan)
+    plan = collapse_project(plan)
+    plan = push_filters_below_joins(plan)
+    plan = reorder_joins(plan)
+    plan = collapse_project(plan)
+    return rewrite_distinct_aggregates(plan)
+
+
+def _memoized(one):
+    """A bottom-up pass that rewrites a shared subtree once."""
+    def run(node: pn.PlanNode, _memo=None) -> pn.PlanNode:
+        if _memo is None:
+            _memo = {}
+        hit = _memo.get(id(node))
+        if hit is not None:
+            return hit[1]
+        out = one(node, lambda c: run(c, _memo))
+        _memo[id(node)] = (node, out)
+        return out
+    run.__name__ = one.__name__.lstrip("_")
+    run.__doc__ = one.__doc__
+    return run
+
+
+@_memoized
+def _collapse_project(node: pn.PlanNode, recurse) -> pn.PlanNode:
+    """Project/Filter chains collapsed bottom up (the reference's
+    ``collapse_project``)."""
+    node = _with_children(node, [recurse(c) for c in node.children])
+    child = node.children[0] if node.children else None
+    if isinstance(node, pn.ProjectNode) and \
+            isinstance(child, pn.ProjectNode) and \
+            all(e.deterministic for e in child.exprs):
+        counts = [0] * len(child.exprs)
+        for e in node.exprs:
+            for r in e.collect(lambda n: isinstance(n, BoundReference)):
+                counts[r.ordinal] += 1
+        if all(c <= 1 or
+               isinstance(unwrap_alias(child.exprs[i]), BoundReference)
+               for i, c in enumerate(counts)):
+            return recurse(pn.ProjectNode(
+                [substitute(e, child.exprs) for e in node.exprs],
+                child.children[0], names=list(node.names)))
+    if isinstance(node, pn.FilterNode) and isinstance(child, pn.FilterNode):
+        return recurse(pn.FilterNode(And(child.condition, node.condition),
+                                     child.children[0]))
+    if isinstance(node, pn.FilterNode) and \
+            isinstance(child, pn.ProjectNode) and \
+            all(e.deterministic for e in child.exprs) and \
+            node.condition.deterministic:
+        return recurse(pn.ProjectNode(
+            list(child.exprs),
+            pn.FilterNode(substitute(node.condition, child.exprs),
+                          child.children[0]),
+            names=list(child.names)))
+    return node
+
+
+collapse_project = _collapse_project
+
+
+def _conjuncts(e: Expression) -> List[Expression]:
+    if isinstance(e, And):
+        return _conjuncts(e.children[0]) + _conjuncts(e.children[1])
+    return [e]
+
+
+def _and_all(exprs: List[Expression]) -> Expression:
+    out = exprs[0]
+    for e in exprs[1:]:
+        out = And(out, e)
+    return out
+
+
+def _shift_refs(e: Expression, delta: int) -> Expression:
+    return e.transform(lambda n: BoundReference(n.ordinal + delta, n.dtype)
+                       if isinstance(n, BoundReference) else n)
+
+
+@_memoized
+def _push_filters_below_joins(node: pn.PlanNode, recurse) -> pn.PlanNode:
+    """Each conjunct of a filter over a join that reads one side only
+    moves below the join where its kind allows (the reference's
+    ``push_filters_below_joins``)."""
+    node = _with_children(node, [recurse(c) for c in node.children])
+    if not (isinstance(node, pn.FilterNode) and
+            isinstance(node.children[0], pn.JoinNode)):
+        return node
+    join = node.children[0]
+    lw = len(join.children[0].output_schema().names)
+    # a left join's right side must not be filtered first (a dropped
+    # match would become a null-extended row); a full join takes nothing
+    push_left = join.kind in ("inner", "left", "left_semi", "left_anti")
+    push_right = join.kind in ("inner", "right")
+    keep, lpush, rpush = [], [], []
+    for c in _conjuncts(node.condition):
+        ords = [r.ordinal for r in
+                c.collect(lambda n: isinstance(n, BoundReference))]
+        if not c.deterministic or not ords:
+            keep.append(c)
+        elif max(ords) < lw and push_left:
+            lpush.append(c)
+        elif min(ords) >= lw and push_right:
+            rpush.append(_shift_refs(c, -lw))
+        else:
+            keep.append(c)
+    if not lpush and not rpush:
+        return node
+    left, right = join.children
+    if lpush:
+        left = recurse(pn.FilterNode(_and_all(lpush), left))
+    if rpush:
+        right = recurse(pn.FilterNode(_and_all(rpush), right))
+    out: pn.PlanNode = pn.JoinNode(join.kind, left, right, join.left_keys,
+                                   join.right_keys, condition=join.condition)
+    if keep:
+        out = pn.FilterNode(_and_all(keep), out)
+    return out
+
+
+push_filters_below_joins = _push_filters_below_joins
 
 
 def estimate_rows(node: pn.PlanNode) -> Optional[int]:
@@ -119,20 +255,19 @@ def _greedy_order(n: int, edges, est) -> Optional[List[int]]:
     return order
 
 
-def reorder_joins(node: pn.PlanNode) -> pn.PlanNode:
+@_memoized
+def _reorder_joins(node: pn.PlanNode, recurse) -> pn.PlanNode:
     """``node`` with every join chain of three or more relations in the
     reference's greedy order (top down, so a chain flattens whole)."""
     if not _chain(node):
-        return _with_children(node, [reorder_joins(c)
-                                     for c in node.children])
+        return _with_children(node, [recurse(c) for c in node.children])
     rels, _colmap, edges = _flatten_inner_joins(node)
     est = [estimate_rows(r) for r in rels]
     order = None if len(rels) < 3 or any(e is None for e in est) else \
         _greedy_order(len(rels), edges, est)
     if order is None or order == list(range(len(rels))):
-        return _with_children(node, [reorder_joins(c)
-                                     for c in node.children])
-    rels = [reorder_joins(r) for r in rels]
+        return _with_children(node, [recurse(c) for c in node.children])
+    rels = [recurse(r) for r in rels]
     # left-deep in greedy order; a relation joins on every key equality
     # that links it to the relations already placed
     offsets = {order[0]: 0}
@@ -161,21 +296,19 @@ def reorder_joins(node: pn.PlanNode) -> pn.PlanNode:
     return pn.ProjectNode(exprs, cur, names=list(out.names))
 
 
-def rewrite_distinct_aggregates(node: pn.PlanNode, _memo=None
-                                ) -> pn.PlanNode:
+reorder_joins = _reorder_joins
+
+
+@_memoized
+def _rewrite_distinct_aggregates(node: pn.PlanNode, recurse) -> pn.PlanNode:
     """``node`` with every distinct count or sum rewritten to a dedup
     group-by and a plain aggregate over it (bottom up; a subtree that
     occurs twice is rewritten once)."""
-    if _memo is None:
-        _memo = {}
-    hit = _memo.get(id(node))
-    if hit is not None:
-        return hit[1]
-    out = _with_children(node, [rewrite_distinct_aggregates(c, _memo)
-                                for c in node.children])
-    out = _rewrite_distinct_one(out)
-    _memo[id(node)] = (node, out)
-    return out
+    return _rewrite_distinct_one(
+        _with_children(node, [recurse(c) for c in node.children]))
+
+
+rewrite_distinct_aggregates = _rewrite_distinct_aggregates
 
 
 def _rewrite_distinct_one(node: pn.PlanNode) -> pn.PlanNode:

@@ -445,9 +445,11 @@ def test_session_sql_launches_like_table():
 @pytest.mark.parametrize("query", ["q1", "q12", "q13", "q21"])
 def test_tpch_host_string_query_card_equals_cpu(query):
     """TPC-H q1, q12, q13 and q21 at sf 0.1 over ``HostStrings`` tables on
-    the card and on the CPU: strings and counts equal, float sums and
-    averages within 1e-9 relative; the partition kernel runs, and the
-    probe in every query that joins."""
+    the card and on the CPU, each on its unfused and its default (fused)
+    tree: strings and counts equal, float sums and averages within 1e-9
+    relative; on the unfused tree the partition kernel runs, and the
+    probe in every query that joins; on both the radix sort orders the
+    result (in the fused tree, the sort tail's)."""
     from spark_rapids_tpu_torch.benchmarks import datagen, tpch
     from spark_rapids_tpu_torch.execs.base import collect
     from spark_rapids_tpu_torch.plan.overrides import apply_overrides
@@ -455,18 +457,22 @@ def test_tpch_host_string_query_card_equals_cpu(query):
     dev = _card()
     args = [datagen.GENERATORS[t](0.1) for t in tpch.INPUTS[query]]
     plan = getattr(tpch, query)
-    nk.reset_launches()
-    got = collect(apply_overrides(plan(*args), device=dev))
-    assert nk.LAUNCHES["partition_order"] >= 1
-    if query != "q1":
-        assert nk.LAUNCHES["probe"] >= 1
-    want = collect(apply_overrides(plan(*args), device="cpu"))
-    assert list(got) == list(want) and len(want[next(iter(want))]) > 0
-    for name, w in want.items():
-        if w.dtype.kind == "f":
-            np.testing.assert_allclose(got[name], w, rtol=1e-9, atol=0)
-        else:
-            assert list(got[name]) == list(w), name
+    for fused in (False, True):
+        conf = {"rapids.tpu.sql.fusion.enabled": fused}
+        nk.reset_launches()
+        got = collect(apply_overrides(plan(*args), conf, device=dev))
+        assert nk.LAUNCHES["radix_order"] >= 1
+        if not fused:
+            assert nk.LAUNCHES["partition_order"] >= 1
+            if query != "q1":
+                assert nk.LAUNCHES["probe"] >= 1
+        want = collect(apply_overrides(plan(*args), conf, device="cpu"))
+        assert list(got) == list(want) and len(want[next(iter(want))]) > 0
+        for name, w in want.items():
+            if w.dtype.kind == "f":
+                np.testing.assert_allclose(got[name], w, rtol=1e-9, atol=0)
+            else:
+                assert list(got[name]) == list(w), name
 
 
 @pytest.mark.cuda
@@ -826,3 +832,117 @@ def test_host_range_on_card_equals_host(dtype):
                         None if v is None else
                         torch.from_numpy(v).to(dev)).get()
         assert got == want
+
+
+# -- fused chains (execs/fused.py) ---------------------------------------------
+
+
+def _fusion_sessions(dev, conf):
+    """A card and a CPU session over one seeded fact table and a
+    dimension of 25 unique keys."""
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.plan import nodes as pn
+
+    r = np.random.default_rng(21)
+    n = 50_000
+    fact = {"i": np.arange(n, dtype=np.int64),
+            "k": r.integers(-5, 25, n).astype(np.int64),
+            "f": r.standard_normal(n), "g": r.standard_normal(n),
+            "s": np.array(["x", "y", "zz"], dtype=object)[
+                r.integers(0, 3, n)]}
+    dim = {"dk": np.arange(-5, 20, dtype=np.int64),
+           "w": r.standard_normal(25)}
+    out = []
+    for on in (dev, "cpu"):
+        s = Session(dict(conf), device=on)
+        s.create_temp_view("t", pn.InMemorySource(dict(fact)))
+        s.create_temp_view("d", pn.InMemorySource(dict(dim)))
+        out.append(s)
+    return out
+
+
+def _bits_equal(got: dict, want: dict):
+    assert list(got) == list(want)
+    for c in want:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        if w.dtype.kind == "f":
+            g, w = g.view(np.int64), w.view(np.int64)
+        assert list(g) == list(w), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+def test_chain_join_card_equals_cpu(mode):
+    """A standalone chain (a string filter, a join, a product fused into
+    an add across the join) on the card and on the CPU, bit for bit; its
+    join probes the dense table, or (past a 16-slot span ceiling) K3; the
+    chain's compaction is K1; both counted in ``LAUNCHES``."""
+    from spark_rapids_tpu_torch.execs.base import collect
+    from spark_rapids_tpu_torch.execs.fused import fusion_summary
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+
+    dev = _card()
+    conf = {"rapids.tpu.sql.reader.batchSizeRows": 8192}
+    if mode == "hash":
+        conf["rapids.tpu.sql.fusion.denseProbe.maxSpan"] = 16
+    text = ("SELECT i, x + w AS y, k FROM (SELECT i, f * g AS x, k, s FROM "
+            "t) q JOIN d ON q.k = d.dk WHERE s IN ('x', 'zz')")
+    out = []
+    for s in _fusion_sessions(dev, conf):
+        tree = apply_overrides(s.sql(text)._plan, s.conf, device=s.device)
+        nk.reset_launches()
+        out.append(collect(tree))
+        summary = fusion_summary(tree)
+        assert summary["chains"] == 1 and summary["fell_back"] == 0
+        assert summary[f"{mode}_joins"] == 1
+        if s.device == dev:
+            batches = -(-50_000 // 8192)
+            assert nk.LAUNCHES["partition_order"] == batches
+            assert nk.LAUNCHES["probe"] == (batches if mode == "hash"
+                                            else 0)
+    assert len(out[1]["i"]) > 0
+    _bits_equal(*out)
+
+
+@pytest.mark.cuda
+def test_c7_queries_card_equal_cpu():
+    """The C7 queries (the C6 paths of ``tests/test_torch_groupby.py``)
+    on the card and on the CPU, both default (fused) sessions, bit for
+    bit; where the key keeps its statistics, min(-0.0) is -0.0."""
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+    from spark_rapids_tpu_torch.plan import nodes as pn
+
+    dev = _card()
+    r = np.random.default_rng(6)
+    n = 300
+    a = {"k": r.integers(-5, 20, n).astype(np.int64),
+         "v": r.standard_normal(n), "z": np.full(n, -0.0),
+         "s": np.array(["x", "y"], dtype=object)[r.integers(0, 2, n)],
+         "dt": r.integers(9000, 9060, n).astype(np.int32),
+         "wide": r.integers(0, 5000, n).astype(np.int64)}
+    b = {"k": np.arange(-5, 20, dtype=np.int64), "w": np.full(25, -0.0)}
+    types = {"k": dt.INT64, "v": dt.FLOAT64, "z": dt.FLOAT64,
+             "s": dt.STRING, "dt": dt.DATE, "wide": dt.INT64,
+             "w": dt.FLOAT64}
+    texts = [
+        "SELECT k, min(z) AS m FROM a WHERE s = 'x' GROUP BY k",
+        "SELECT k, min(z) AS m FROM (SELECT k, z FROM a WHERE v > 0.0) x "
+        "GROUP BY k",
+        "SELECT a.k, min(b.w) AS m FROM a JOIN b ON a.k = b.k GROUP BY a.k",
+        "SELECT k2, min(z) AS m FROM (SELECT k + 1 AS k2, z FROM a) x "
+        "GROUP BY k2",
+        "SELECT wide, min(z) AS m FROM a GROUP BY wide"]
+    for text in texts:
+        out = []
+        for on in (dev, "cpu"):
+            s = Session(device=on)
+            for name, cols in (("a", a), ("b", b)):
+                s.create_temp_view(name, pn.InMemorySource(
+                    dict(cols), Schema(list(cols),
+                                       [types[c] for c in cols])))
+            out.append(s.sql(text).collect())
+        _bits_equal(*out)
+        signs = np.signbit(np.asarray(out[0]["m"], np.float64))
+        assert signs.all() == ("wide" not in text), text

@@ -475,9 +475,9 @@ _C6_PATHS = [
 @pytest.fixture(scope="module")
 def c6_paths():
     """query -> (the reference's signs of min, the port's), one session
-    each; the reference's exec tree unfused, as the port's is (with
-    fusion on, its statistics also survive a string filter, a projection
-    over a filter and a join's stream side: ROADMAP C7)."""
+    each; both exec trees unfused (with fusion on, the default, the
+    statistics also survive a string filter, a projection over a filter
+    and a join's stream side: ROADMAP C7, ``tests/test_torch_fusion.py``)."""
     from spark_rapids_tpu.api import Session as RSession
     from spark_rapids_tpu.columnar import dtypes as rdt
     from spark_rapids_tpu.columnar.batch import Schema as RSchema
@@ -498,7 +498,7 @@ def c6_paths():
              "w": tdt.FLOAT64}
     rs = RSession({"rapids.tpu.sql.fusion.enabled": False,
                    "rapids.tpu.sql.adaptive.enabled": False})
-    s = Session(device="cpu")
+    s = Session({"rapids.tpu.sql.fusion.enabled": False}, device="cpu")
     for name, cols in (("a", a), ("b", b)):
         names = list(cols)
         ts = [types[c] for c in names]

@@ -260,6 +260,7 @@ def test_groupby_generic_int64_key_matches_reference():
 
 def test_import_leaves_reference_and_host_libraries_out():
     code = ("import sys, spark_rapids_tpu_torch.plan.overrides, "
+            "spark_rapids_tpu_torch.execs.fused, "
             "spark_rapids_tpu_torch.benchmarks.tpcxbb, "
             "spark_rapids_tpu_torch.benchmarks.tpcds, "
             "spark_rapids_tpu_torch.benchmarks.tpch, "

@@ -5,7 +5,9 @@ columns seed for seed; the port's q26 (apply_overrides -> collect on the
 CPU) must equal the reference engine's q26 exactly, run from the
 reference's own query builder over parquet written from the reference's
 generators: once with fusion and adaptive execution off and the native
-kernels on (the exec tree the port mirrors), once with the default conf.
+kernels on (against the port's unfused tree), once with the default conf
+(against the port's default, fused, tree, which has the shape of the
+reference's: the same fused execs with the same steps).
 """
 from __future__ import annotations
 
@@ -69,6 +71,10 @@ def reference_q26(tmp_path_factory):
     finally:
         rnk.reset_config()
     out["default"] = rcollect(rapply(rtpcxbb.q26(str(d)), RapidsConf()))
+    from test_torch_fusion import shape
+
+    out["fused_shape"] = shape(rapply(rtpcxbb.q26(str(d)), RapidsConf(
+        {"rapids.tpu.sql.adaptive.enabled": False})))
     return out
 
 
@@ -82,6 +88,8 @@ def test_q26_matches_reference_engine(reference_q26, conf, batch_rows):
     want = reference_q26[conf]
     tconf = {} if batch_rows is None else \
         {"rapids.tpu.sql.reader.batchSizeRows": batch_rows}
+    if conf == "unfused_kernels":
+        tconf["rapids.tpu.sql.fusion.enabled"] = False
     ss, it = ttpcds.gen_store_sales(SF), ttpcds.gen_item(SF)
     tnk.reset_launches()
     got = collect(apply_overrides(tpcxbb.q26(ss, it), tconf, device="cpu"))
@@ -92,6 +100,15 @@ def test_q26_matches_reference_engine(reference_q26, conf, batch_rows):
                                       want[name].to_numpy(np.int64))
     # on the CPU the wrappers run their plain versions: nothing launches
     assert all(v == 0 for v in tnk.LAUNCHES.values())
+
+
+def test_q26_fused_tree_has_the_reference_shape(reference_q26):
+    from test_torch_fusion import shape
+
+    ss, it = ttpcds.gen_store_sales(SF), ttpcds.gen_item(SF)
+    texec = apply_overrides(tpcxbb.q26(ss, it), device="cpu")
+    assert shape(texec) == reference_q26["fused_shape"]
+    assert [n for n, _ in shape(texec)].count("FusedChainExec") == 2
 
 
 def test_q26_matches_numpy_oracle():

@@ -10,7 +10,9 @@ same in-memory tables: keys, strings and counts exact, float sums within
 1e-9 relative (the reference's own tolerance against its CPU oracle; the
 engines sum in different orders). q91 also runs at 256-row scan batches,
 where every dimension batch has its own string dictionaries, and against
-the numpy oracle. What the port cannot plan must raise SqlError.
+the numpy oracle; its default trees are fused in both engines, of one
+shape, and with fusion off both engines give the same rows too. What
+the port cannot plan must raise SqlError.
 """
 from __future__ import annotations
 
@@ -471,6 +473,35 @@ def q91_sf1():
     for name, src in rcat.items():
         rs.create_temp_view(name, src)
     return tables, rs.sql(rtpcds.TPCDS_SQL["q91"]).collect()
+
+
+def test_q91_trees_match_reference(q91_sf1):
+    """The port's default tree has the reference's default tree's shape
+    (the same fused execs with the same steps; adaptive execution off),
+    and the port's unfused tree gives the rows of the reference's with
+    fusion off."""
+    from test_torch_fusion import shape
+
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+
+    tables, _ = q91_sf1
+    rcat, tcat = _catalogs(tables)
+    rtree = rapply(rplan(rparse(rtpcds.TPCDS_SQL["q91"]), rcat),
+                   RapidsConf({"rapids.tpu.sql.adaptive.enabled": False}))
+    ttree = apply_overrides(plan_statement(parse(tpcds.Q91_SQL), tcat),
+                            device="cpu")
+    assert shape(ttree) == shape(rtree)
+    assert any(n.startswith("Fused") for n, _ in shape(ttree))
+    unfused = {"rapids.tpu.sql.fusion.enabled": False}
+    rs = RSession(unfused)
+    for name, src in rcat.items():
+        rs.create_temp_view(name, src)
+    want = rs.sql(rtpcds.TPCDS_SQL["q91"]).collect()
+    s = Session(unfused, device="cpu")
+    for name, cols in tables.items():
+        s.create_temp_view(name, pn.InMemorySource(cols))
+    assert len(want) == 7
+    _assert_same(s.sql(tpcds.Q91_SQL).collect(), want, True)
 
 
 @pytest.mark.parametrize("batch_rows", [None, 256], ids=["default", "256"])

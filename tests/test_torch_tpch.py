@@ -7,12 +7,15 @@ queries (apply_overrides -> collect on the CPU) must equal the reference
 engine's, run from the reference's own query functions over parquet
 written from the reference's generators. q14 and q22 run the reference
 twice: with fusion and adaptive execution off and the native kernels on
-(the exec tree the port mirrors), and with the default conf. The others
-run it once, unfused, on its default plain path, against the port at
-256-row scan batches (2,048 for the ten queries that need `Year`,
-`Cast` or the generators' last columns), so
-many batches share one dictionary (and the aggregates merge many
-partials: q21's distinct counts, q18's sums).
+(against the port's unfused tree), and with the default conf (against
+the port's default, fused, tree). The others run it unfused, on its
+default plain path, against the port's unfused tree at 256-row scan
+batches (2,048 for the ten queries that need `Year`, `Cast` or the
+generators' last columns), so many batches share one dictionary (and
+the aggregates merge many partials: q21's distinct counts, q18's sums),
+and with its default fusion (adaptive execution off) against the port's
+default tree at the same batches. The fused trees have the reference's
+shape (the fused execs and their steps, ``test_torch_fusion.shape``).
 Strings, keys and counts exact, float sums within 1e-9 relative (the
 reference's own tolerance against its CPU oracle; the two engines sum in
 different orders).
@@ -52,6 +55,8 @@ from spark_rapids_tpu_torch.plan.overrides import (  # noqa: E402
 SF = 0.01
 _UNFUSED = {"rapids.tpu.sql.fusion.enabled": False,
             "rapids.tpu.sql.adaptive.enabled": False}
+_FUSED = {"rapids.tpu.sql.adaptive.enabled": False}
+_PORT_UNFUSED = {"rapids.tpu.sql.fusion.enabled": False}
 _BATCH = "rapids.tpu.sql.reader.batchSizeRows"
 
 _GENERATORS = {
@@ -144,7 +149,10 @@ def parquet_dirs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def reference_results(parquet_dirs):
-    """case -> conf -> the reference engine's result."""
+    """case -> conf -> the reference engine's result; query + ":fused"
+    -> (its default tree's result, that tree's shape)."""
+    from test_torch_fusion import shape
+
     dirs = parquet_dirs
     out = {}
     for case, (query, frac) in _CASES.items():
@@ -161,6 +169,8 @@ def reference_results(parquet_dirs):
     for query in _HOST_STRING_QUERIES:
         out[query] = rcollect(rapply(getattr(rtpch, query)(dirs[1.0]),
                                      RapidsConf(_UNFUSED)))
+        fused = rapply(getattr(rtpch, query)(dirs[1.0]), RapidsConf(_FUSED))
+        out[query + ":fused"] = (rcollect(fused), shape(fused))
     return out
 
 
@@ -185,8 +195,9 @@ def test_query_matches_reference_engine(reference_results, case, conf):
     query, frac = _CASES[case]
     want = reference_results[case][conf]
     tnk.reset_launches()
-    got = collect(apply_overrides(_QUERIES[query](_tables(frac)),
-                                  device="cpu"))
+    got = collect(apply_overrides(
+        _QUERIES[query](_tables(frac)),
+        _PORT_UNFUSED if conf == "unfused_kernels" else {}, device="cpu"))
     _assert_result_equal(got, want)
     # on the CPU the wrappers run their plain versions: nothing launches
     assert all(v == 0 for v in tnk.LAUNCHES.values())
@@ -215,7 +226,8 @@ def test_host_string_query_matches_reference_engine(reference_results,
     ten queries of ``_NEW_QUERIES``, their joins' stream side still 30
     lineitem batches): every batch of a scan shares its table's
     dictionary, through filters, joins, the aggregate's merges and the
-    sort. Nothing calls ``StringColumn.from_strings``."""
+    sort. Nothing calls ``StringColumn.from_strings``. Both engines'
+    trees unfused."""
     calls = []
     orig = StringColumn.from_strings
     StringColumn.from_strings = staticmethod(
@@ -223,13 +235,33 @@ def test_host_string_query_matches_reference_engine(reference_results,
     try:
         rows = 2048 if query in _NEW_QUERIES else 256
         got = collect(apply_overrides(_QUERIES[query](_tables()),
-                                      {_BATCH: rows}, device="cpu"))
+                                      {_BATCH: rows, **_PORT_UNFUSED},
+                                      device="cpu"))
     finally:
         StringColumn.from_strings = staticmethod(orig)
     assert not calls
     want = reference_results[query]
     assert len(want) > 0
     _assert_result_equal(got, want)
+
+
+@pytest.mark.parametrize("query", _HOST_STRING_QUERIES)
+def test_fused_query_matches_reference_default_session(reference_results,
+                                                        query):
+    """The port's default tree (fused) against the reference's default
+    one (adaptive execution off) at the batches above: the same rows
+    and the same fused execs with the same steps."""
+    from test_torch_fusion import shape
+
+    rows = 2048 if query in _NEW_QUERIES else 256
+    texec = apply_overrides(_QUERIES[query](_tables()), {_BATCH: rows},
+                            device="cpu")
+    got = collect(texec)
+    want, want_shape = reference_results[query + ":fused"]
+    assert len(want) > 0
+    _assert_result_equal(got, want)
+    assert shape(texec) == want_shape
+    assert any(name.startswith("Fused") for name, _ in want_shape)
 
 
 def _join_order(node):
