@@ -103,8 +103,19 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    front end (Session.create_temp_view -> sql -> collect), group keys
    exact and sums within 1e-9 relative of a numpy oracle; then the C7
    queries (a small-range key that keeps its statistics through a
-   string filter, a filter below a projection and a join's stream side
-   in the fused tree) on the card against the CPU, bit for bit;
+   string filter, a filter below a projection, a join's stream side
+   and a pmod by a positive literal in the fused tree) on the card
+   against the CPU, bit for bit;
+   then TPCx-BB at sf 10 (its tables' sizes printed first: store_sales
+   28.8M rows, web_sales 7M, web_clickstreams 50M, inventory 234M,
+   store_returns 2.4M, web_returns 700k, product_reviews 600k): the
+   reference's q5, q6, q9, q11 (plan trees) and q12, q14, q15, q16,
+   q17, q20, q21, q22, q23 (SQL text, q23 through a temp view), and
+   q22 and q23 with their dates moved to the 2002 inventory snapshots
+   (``tpcxbb.VARIANTS``; as written both are empty at every scale),
+   each on both trees against its numpy oracle (``tpcxbb.check``), with
+   rows but for the verbatim q22 and q23, each scanning only the
+   columns it reads;
 9. the partition kernel at the sizes the timed query runs launched it
    with (a histogram of them, then cases at their quantiles, each
    against its plain version and its count against ``mask.sum()``);
@@ -163,7 +174,18 @@ PATH_KERNELS = {"fused": {
            "seg_sum"),
     "q11": ("partition_order", "seg_sum"),
     "q20": ("partition_order", "probe", "radix_order", "match_table",
-            "seg_sum")}, "unfused": {
+            "seg_sum"),
+    "bb_q5": ("partition_order",), "bb_q6": ("partition_order", "seg_sum"),
+    "bb_q9": ("partition_order",), "bb_q11": ("partition_order", "seg_sum"),
+    "bb_q12": ("partition_order", "radix_order", "probe"), "bb_q14": (),
+    "bb_q15": ("partition_order", "radix_order", "seg_sum"),
+    "bb_q16": ("radix_order", "probe", "seg_sum"),
+    "bb_q17": ("partition_order",), "bb_q20": ("radix_order", "seg_sum"),
+    "bb_q21": ("partition_order", "radix_order", "probe"),
+    "bb_q22": ("partition_order",), "bb_q23": (),
+    "bb_q22_2002": ("partition_order", "radix_order"),
+    "bb_q23_2002": ("partition_order", "radix_order", "probe",
+                    "seg_sum")}, "unfused": {
     "q26": ("partition_order", "radix_order", "probe"),
     "q14": ("match_table", "probe", "partition_order"),
     "q22": ("substring", "probe", "radix_order", "partition_order"),
@@ -189,7 +211,15 @@ PATH_KERNELS = {"fused": {
            "seg_sum"),
     "q11": ("partition_order", "probe", "seg_sum"),
     "q20": ("partition_order", "probe", "radix_order", "match_table",
-            "seg_sum")}}
+            "seg_sum"),
+    **{f"bb_{q}": ("partition_order", "probe") for q in (
+        "q5", "q9", "q14", "q17", "q22", "q23")},
+    **{f"bb_{q}": ("partition_order", "probe", "seg_sum") for q in (
+        "q6", "q11")},
+    **{f"bb_{q}": ("partition_order", "probe", "radix_order") for q in (
+        "q12", "q21", "q22_2002")},
+    **{f"bb_{q}": ("partition_order", "probe", "radix_order", "seg_sum")
+       for q in ("q15", "q16", "q20", "q23_2002")}}}
 # the C7 queries (tests/test_torch_groupby.py's C6 paths)
 C7_QUERIES = (
     "SELECT k, min(z) AS m FROM a GROUP BY k",
@@ -211,7 +241,12 @@ C7_QUERIES = (
     "SELECT a.k, min(b.w) AS m FROM a JOIN b ON a.k = b.k GROUP BY a.k",
     "SELECT wide, min(z) AS m FROM a GROUP BY wide",
     "SELECT k, dt, min(z) AS m FROM a GROUP BY k, dt",
+    "SELECT p, min(z) AS m FROM (SELECT pmod(wide, 4) AS p, z FROM a) x "
+    "GROUP BY p",
 )
+# the TPCx-BB queries that are empty at every scale as the reference
+# writes them (their 2001 window holds one inventory snapshot)
+TPCXBB_EMPTY = ("q22", "q23")
 # q11's fraction as TPC-H scales it (0.0001 / sf): the reference's literal
 # is the sf-1 value, which keeps no part at sf 10
 Q11_FRACTION = 0.0001 / SF
@@ -976,11 +1011,13 @@ def _fused_reach(tree):
     return need, summary
 
 
-def _run_query(name, run, nk, tree_kind="fused"):
+def _run_query(name, run, nk, tree_kind="fused", reach=True):
     """One warm run, then a timed run with the launch counts set to 0
     just before it and read just after; it fails unless every kernel of
     the path launched (``PATH_KERNELS`` of its tree, and for the fused
-    tree what its chains reach). Returns (result, record)."""
+    tree what its chains reach, unless ``reach`` is false: a query empty
+    by construction, whose chains compact no row). Returns (result,
+    record)."""
     import torch
 
     run()  # warm: caching allocator, library handles, built kernels
@@ -1002,8 +1039,9 @@ def _run_query(name, run, nk, tree_kind="fused"):
            "launches": launches,
            "k1_sizes": sizes.get("partition_order", [])}
     if tree_kind == "fused":
-        reach, rec["fusion"] = _fused_reach(tree)
-        need |= reach
+        reached, rec["fusion"] = _fused_reach(tree)
+        if reach:
+            need |= reached
     missing = sorted(k for k in need if launches[k] <= 0)
     if missing:
         print(json.dumps(rec))
@@ -1012,13 +1050,14 @@ def _run_query(name, run, nk, tree_kind="fused"):
     return got, rec
 
 
-def _run_trees(name, make_run, nk, check, runs):
+def _run_trees(name, make_run, nk, check, runs, reach=True):
     """The query on the default (fused) tree, then the unfused one, each
     checked by ``check(rows)`` (its oracle) and printed; ``runs`` gets
     both records (the fused one under ``name``). -> the fused rows."""
     out = None
     for tree_kind in TREES:
-        got, rec = _run_query(name, make_run(tree_kind), nk, tree_kind)
+        got, rec = _run_query(name, make_run(tree_kind), nk, tree_kind,
+                              reach)
         rec.update(check(got) or {})
         print(json.dumps(rec))
         runs[name if tree_kind == "fused" else f"{name} unfused"] = rec
@@ -1576,6 +1615,38 @@ def phase_q91(dev, tables, nk, runs):
     _run_trees("q91", make_run, nk, check, runs)
 
 
+def phase_tpcxbb(dev, tables, nk, runs):
+    """The reference's TPCx-BB q5, q6, q9, q11, q12, q14-q17, q20-q23 and
+    the two 2002 variants at sf 10, each on both trees against its numpy
+    oracle (keys, strings and counts exact, floats within 1e-9 relative,
+    q15's within its oracle's bound); every result but the verbatim q22
+    and q23 (empty at every scale) must have rows."""
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+    from spark_rapids_tpu_torch.benchmarks.tpcxbb import READS
+
+    for q in tpcxbb.QUERIES + tpcxbb.VARIANTS:
+        t0 = time.perf_counter()
+        want, bounds = tpcxbb.oracle(q, tables)
+        oracle_s = time.perf_counter() - t0
+        rows = len(next(iter(want.values())))
+
+        def check(got, q=q, want=want, bounds=bounds, rows=rows,
+                  oracle_s=oracle_s):
+            tpcxbb.check(q, got, want, bounds)
+            if not rows and q not in TPCXBB_EMPTY:
+                raise AssertionError(f"TPCx-BB {q} at sf {SF} must return "
+                                     "rows")
+            rec = {f"{t}_rows": len(next(iter(tables[t].values())))
+                   for t in READS[q]}
+            rec.update(result_rows=rows, oracle_s=oracle_s,
+                       matches_oracle=True)
+            return rec
+
+        _run_trees(f"bb_{q}", lambda tree, q=q: _plan_runner(
+            dev, lambda: tpcxbb.plan(q, tables), _tree_conf(None, tree)),
+            nk, check, runs, reach=q not in TPCXBB_EMPTY)
+
+
 def phase_c7(dev):
     """The C7 queries (a small-range key on the dense path through a
     string filter, a filter below a projection and a join's stream side,
@@ -1736,7 +1807,6 @@ def main() -> int:
         phase_q5lite(dev)
         enter("q26")
         phase_q26(dev, ss, item, want, nk, runs)
-        del ss, item
         enter("q14")
         phase_q14(dev, lineitem, part, nk, runs)
         for name in (q for q in tpch.INPUTS if q not in ("q14", "q22")):
@@ -1754,6 +1824,15 @@ def main() -> int:
         phase_q91(dev, q91_tables, nk, runs)
         enter("c7")
         phase_c7(dev)
+        enter("tpcxbb data")
+        bb_tables = tpcxbb.gen_tables(SF, store_sales=ss, item=item)
+        del ss, item
+        print("tpcxbb tables: " + ", ".join(
+            f"{name} {len(next(iter(cols.values())))}"
+            for name, cols in bb_tables.items()))
+        enter("tpcxbb")
+        phase_tpcxbb(dev, bb_tables, nk, runs)
+        del bb_tables
         enter("k1 launch sizes")
         phase_k1_sizes(dev, runs, recs["partition_order"])
         enter("end")

@@ -272,7 +272,11 @@ class PreparedBuild:
 
     @property
     def mode(self) -> str:
-        return "dense" if self.build.table is not None else "hash"
+        """'dense' (one gather in the inverse table), 'hash' (K3's probe)
+        or 'empty' (no valid build key: nothing to probe)."""
+        if self.build.table is not None:
+            return "dense"
+        return "hash" if self.build.n_valid else "empty"
 
 
 def prepare_build(join: "joins.BroadcastHashJoinExec",
@@ -547,7 +551,7 @@ class _FusedMixin:
 
     @property
     def join_modes(self) -> List[str]:
-        """'dense' or 'hash' per build, once prepared."""
+        """'dense', 'hash' or 'empty' per build, once prepared."""
         return [p.mode for p in self._preps or ()]
 
     @property
@@ -675,7 +679,8 @@ def fusion_summary(root: TorchExec) -> dict:
                               for n in nodes),
             "fell_back": sum(n.fell_back for n in nodes),
             "dense_joins": modes.count("dense"),
-            "hash_joins": modes.count("hash")}
+            "hash_joins": modes.count("hash"),
+            "empty_joins": modes.count("empty")}
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 spark_rapids_tpu/expressions/aggregates.py): each declares its update
 half (raw rows -> partial columns) and merge half (partials -> partials)
 as group-by ops, plus its final evaluation over the partials. The
-aggregate exec drives both halves. A ``distinct`` count or sum is
+aggregate exec drives both halves. The central moments (variance and
+standard deviation, sample and population) carry four partials that all
+merge by addition. A ``distinct`` count or sum is
 rewritten away before it runs (``plan/optimizer.rewrite_distinct_
 aggregates``)."""
 from __future__ import annotations
@@ -156,3 +158,74 @@ class Average(AggregateFunction):
         from spark_rapids_tpu_torch.expressions.arithmetic import Divide
 
         return Divide(partials[0], partials[1])
+
+
+class _CentralMoment(AggregateFunction):
+    """Variance and standard deviation (the reference's
+    ``_CentralMoment``). Partials ``[sum, count, m2, rterm]``: ``m2`` is
+    each update's exact centred second moment (every row shifted by its
+    group's first valid value, ``ops.groupby``), ``rterm`` its (sum)^2 /
+    n; all four merge by addition, and the final value is
+    ``m2 + (rterm - sum^2 / n)`` (the correction is zero for one
+    update), clamped at 0, over n or n - 1. A sample moment of one row
+    is NaN; of no valid row, null."""
+
+    _denom_minus = 1
+    _sqrt = False
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return dt.FLOAT64
+
+    def partial_types(self):
+        return [dt.FLOAT64, dt.INT64, dt.FLOAT64, dt.FLOAT64]
+
+    def update_ops(self):
+        return ["sum", "count", "m2", "rterm"]
+
+    def merge_ops(self):
+        return ["sum", "sum", "sum", "sum"]
+
+    def evaluate(self, partials: List[Expression]) -> Expression:
+        from spark_rapids_tpu_torch.expressions.arithmetic import (
+            Add, Divide, Multiply, Subtract)
+        from spark_rapids_tpu_torch.expressions.base import Literal
+        from spark_rapids_tpu_torch.expressions.cast import Cast
+        from spark_rapids_tpu_torch.expressions.conditional import If
+        from spark_rapids_tpu_torch.expressions.math import Sqrt
+        from spark_rapids_tpu_torch.expressions.predicates import (EqualTo,
+                                                                   LessThan)
+
+        s, n, m2, r = partials
+        nf = Cast(n, dt.FLOAT64)
+        total = Add(m2, Subtract(r, Divide(Multiply(s, s), nf)))
+        total = If(LessThan(total, Literal(0.0)), Literal(0.0), total)
+        denom = Subtract(nf, Literal(float(self._denom_minus))) \
+            if self._denom_minus else nf
+        out = Divide(total, denom)
+        if self._denom_minus:
+            out = If(EqualTo(n, Literal(1, dt.INT64)),
+                     Literal(float("nan"), dt.FLOAT64), out)
+        return Sqrt(out) if self._sqrt else out
+
+
+class VarianceSamp(_CentralMoment):
+    """var_samp / variance."""
+
+
+class VariancePop(_CentralMoment):
+    _denom_minus = 0
+
+
+class StddevSamp(_CentralMoment):
+    """stddev_samp / stddev / std."""
+
+    _sqrt = True
+
+
+class StddevPop(_CentralMoment):
+    _denom_minus = 0
+    _sqrt = True

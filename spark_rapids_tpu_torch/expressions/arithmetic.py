@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
@@ -233,3 +234,185 @@ class MultiplyAdd(Expression):
             return _scalar_result(self._dtype, data)
         validity = and_validity(*(value_validity(v) for v in vals))
         return ColV(self._dtype, data, validity)
+
+
+def eval_unary(expr: Expression, ctx: EvalContext, fn,
+               out_t: dt.DType) -> EvalValue:
+    """``fn`` over the child's data (a scalar as a 0-d tensor): null in,
+    null out; a scalar in, a scalar out."""
+    v = expr.children[0].eval(ctx)
+    if isinstance(v, Scalar):
+        if v.is_null:
+            return Scalar(out_t, None)
+        return _scalar_result(out_t, fn(operand(v)).to(out_t.torch_dtype))
+    return ColV(out_t, fn(v.data).to(out_t.torch_dtype), v.validity)
+
+
+class _DivLike(Expression):
+    """A division-like operation (the reference's ``_DivLike``): null
+    where the divisor is zero (a subnormal divisor counts as zero), and
+    the divisor made safe (1) there before the operation."""
+
+    def __init__(self, left: Expression, right: Expression):
+        super().__init__([left, right])
+
+    def op(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def eval(self, ctx: EvalContext) -> EvalValue:
+        a = self.children[0].eval(ctx)
+        b = self.children[1].eval(ctx)
+        out = self.dtype
+        if (isinstance(a, Scalar) and a.is_null) or \
+                (isinstance(b, Scalar) and b.is_null):
+            return Scalar(out, None)
+        ad, bd = operand(a), operand(b)
+        # a literal divisor's test is folded before the program runs,
+        # with no flush to zero
+        nonzero = (bd if isinstance(b, Scalar) else
+                   flush_subnormals(bd)) != 0
+        safe = torch.where(nonzero, bd, torch.ones_like(bd))
+        data = self.op(ad, safe).to(out.torch_dtype)
+        if isinstance(a, Scalar) and isinstance(b, Scalar):
+            return Scalar(out, None) if not bool(nonzero) else \
+                _scalar_result(out, data)
+        validity = and_validity(value_validity(a), value_validity(b))
+        nonzero = nonzero.to(ctx.device).expand(ctx.num_rows)
+        validity = nonzero if validity is None else validity & nonzero
+        return ColV(out, data.expand(ctx.num_rows).contiguous(), validity)
+
+
+def _int_safe(b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(b == -1, b with -1 made 1): ``MIN % -1`` and ``MIN / -1`` are
+    the one quotient that overflows; XLA defines them (0 and MIN), a
+    CPU's integer division traps."""
+    neg1 = b == -1
+    return neg1, torch.where(neg1, torch.ones_like(b), b)
+
+
+def on_host(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
+
+
+def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The truncated remainder (Java's ``%``: the sign of the dividend),
+    with ``MIN % -1`` = 0. A float remainder is exact, of the dividend as
+    it is, and NaN for a subnormal divisor, as the reference's libm call
+    reads it under the XLA backend's flush-to-zero. torch's vectorized
+    CPU fmod is not exact (a huge quotient gives NaN), so a CPU tensor's
+    goes through numpy's libm call; CUDA's fmod is exact."""
+    if a.is_floating_point():
+        b = flush_subnormals(b)
+        if on_host(a) and on_host(b):
+            a, b = torch.broadcast_tensors(a, b)
+            with np.errstate(invalid="ignore"):
+                return torch.from_numpy(np.fmod(a.numpy(), b.numpy()))
+        return torch.fmod(a, b)
+    _, safe = _int_safe(b)
+    return torch.fmod(a, safe)
+
+
+class IntegralDivide(_DivLike):
+    """``div``: a bigint quotient truncated toward zero; ``MIN div -1``
+    wraps to MIN."""
+
+    @property
+    def dtype(self) -> dt.DType:
+        return dt.INT64
+
+    def op(self, a, b):
+        a, b = a.to(torch.int64), b.to(torch.int64)
+        neg1, safe = _int_safe(b)
+        q = torch.div(a, safe, rounding_mode="trunc")
+        return torch.where(neg1, -a, q)
+
+
+class Remainder(_DivLike):
+    """``%``: the truncated remainder in the operands' common type, the
+    sign of the dividend (also right for infinite operands)."""
+
+    @property
+    def dtype(self) -> dt.DType:
+        return dt.common_type(self.children[0].dtype,
+                              self.children[1].dtype)
+
+    def op(self, a, b):
+        kt = self.dtype.torch_dtype
+        return _fmod(a.to(kt), b.to(kt))
+
+
+class Pmod(_DivLike):
+    """``pmod(a, n)``: ``r = a % n``, and ``(r + n) % n`` where r < 0,
+    with Java's wrap-around on ``r + n`` at the integer limits. The
+    comparison and the add count a subnormal as a zero of its sign, as
+    the reference's XLA backend does."""
+
+    @property
+    def dtype(self) -> dt.DType:
+        return dt.common_type(self.children[0].dtype,
+                              self.children[1].dtype)
+
+    def op(self, a, b):
+        kt = self.dtype.torch_dtype
+        a, b = a.to(kt), b.to(kt)
+        r = _fmod(a, b)
+        fr, fb = flush_subnormals(r), flush_subnormals(b)
+        return torch.where(fr < 0, _fmod(flush_subnormals(fr + fb), b), r)
+
+
+class UnaryMinus(Expression):
+    """``-x``: integers wrap; a float's sign flips, subnormals kept."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self.children[0].dtype
+
+    def eval(self, ctx):
+        return eval_unary(self, ctx, torch.neg, self.dtype)
+
+
+class UnaryPositive(Expression):
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self.children[0].dtype
+
+    def eval(self, ctx):
+        return self.children[0].eval(ctx)
+
+
+class Abs(Expression):
+    """``abs(x)``: integers wrap at MIN; a float's sign bit cleared."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self.children[0].dtype
+
+    def eval(self, ctx):
+        return eval_unary(self, ctx, torch.abs, self.dtype)
+
+
+class Signum(Expression):
+    """``signum(x)``: -1.0, 1.0, or x itself for a zero (its sign kept,
+    a subnormal a zero) and NaN, as a double."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def dtype(self) -> dt.DType:
+        return dt.FLOAT64
+
+    def eval(self, ctx):
+        def sign(x):
+            x = flush_subnormals(x.to(torch.float64))
+            return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
+        return eval_unary(self, ctx, sign, dt.FLOAT64)

@@ -47,10 +47,11 @@ def _range(r: Optional[HostRange]):
 def derive_stats(e: Expression, cols: List) -> Optional[HostRange]:
     """The range of a projected expression where the reference's
     ``derive_stats`` computes one: a column's own (not reduced here), a
-    cast between discrete types, ``+ - *`` by an integer literal, the
-    year of a date. None everywhere else. ``cols`` are the input
-    columns as anything with a ``stats`` (a ``ColV``, a fused chain's
-    ghost)."""
+    cast between discrete types, ``+ - *`` by an integer literal,
+    ``pmod`` by a positive integer literal (in [0, n - 1] whatever its
+    input), the year of a date. None everywhere else. ``cols`` are the
+    input columns as anything with a ``stats`` (a ``ColV``, a fused
+    chain's ghost)."""
     e = unwrap_alias(e)
     if isinstance(e, BoundReference):
         return cols[e.ordinal].stats
@@ -69,6 +70,12 @@ def derive_stats(e: Expression, cols: List) -> Optional[HostRange]:
         return HostRange.known(*s)
     if isinstance(e, (ar.Add, ar.Subtract, ar.Multiply)):
         return _arith_range(e, cols)
+    if isinstance(e, ar.Pmod):
+        m = e.children[1]
+        if isinstance(m, Literal) and isinstance(m.value, int) and \
+                m.value > 0:
+            return HostRange.known(0, m.value - 1)
+        return None
     if isinstance(e, Year):
         if e.children[0].dtype is not dt.DATE:
             return None

@@ -34,10 +34,10 @@ passes, and become constants for the next pass only. So ``d / 3 / e`` is
 ``d / (3 * e)`` but ``d / 3.0 / e`` is ``(d * (1 / 3.0)) / e``. The
 constants are computed in the operation's type and never flushed.
 
-Then, as LLVM generates the code, ``x * -1`` and ``-0.0 - x`` are the
-negation of x, and a float product that feeds ``+`` or ``-`` of its own
-type is one ``MultiplyAdd``: the left operand's product when both are
-products. A product that occurs twice in one tree (``d * e + d * e``)
+Then, as LLVM generates the code, ``-x``, ``x * -1`` and ``-0.0 - x``
+are the negation of x, and a float product that feeds ``+`` or ``-`` of
+its own type is one ``MultiplyAdd``: the left operand's product when
+both are products. A product that occurs twice in one tree (``d * e + d * e``)
 is computed once and fuses into nothing, and one that LLVM made a
 select (``(1.0 / d) * 2.0``) fuses only into an add of a literal.
 """
@@ -307,8 +307,10 @@ def _select(e: Expression, prog: _Program) -> bool:
 
 
 def _negated(e: Expression) -> Optional[Expression]:
-    """x when ``e`` is the float ``x * -1`` or ``-0.0 - x``, which LLVM
-    makes a negation (no flush of a subnormal), else None."""
+    """x when ``e`` is the float ``-x``, ``x * -1`` or ``-0.0 - x``,
+    which LLVM makes a negation (no flush of a subnormal), else None."""
+    if isinstance(e, ar.UnaryMinus) and e.dtype.is_floating:
+        return e.children[0]
     if not isinstance(e, _BINARY):
         return None
     x, y = e.children

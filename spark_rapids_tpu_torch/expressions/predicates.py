@@ -1,6 +1,7 @@
 """Predicates and boolean logic (the counterpart of
-spark_rapids_tpu/expressions/predicates.py): the comparisons, AND/OR
-with Spark's three-valued logic, NOT, IS NOT NULL and IN.
+spark_rapids_tpu/expressions/predicates.py): the comparisons, the
+null-safe ``<=>``, AND/OR with Spark's three-valued logic, NOT, IS
+[NOT] NULL, isnan, IN and AtLeastNNonNulls.
 
 A string column compares with a string literal in code space: the
 literal's position in the column's sorted dictionary, on a doubled axis
@@ -101,6 +102,40 @@ class LessThanOrEqual(_Comparison):
     op = staticmethod(lambda a, b: a <= b)
 
 
+class EqualNullSafe(_Comparison):
+    """``<=>``: null <=> null is true, null <=> x false; never null."""
+
+    op = staticmethod(lambda a, b: a == b)
+
+    def eval(self, ctx: EvalContext) -> EvalValue:
+        a = self.children[0].eval(ctx)
+        b = self.children[1].eval(ctx)
+        a_null = isinstance(a, Scalar) and a.is_null
+        b_null = isinstance(b, Scalar) and b.is_null
+        if isinstance(a, Scalar) and isinstance(b, Scalar):
+            if a_null or b_null:
+                return Scalar(dt.BOOLEAN, a_null and b_null)
+            return Scalar(dt.BOOLEAN, bool(self.op(a.value, b.value)))
+        if self.children[0].dtype is dt.STRING and not (a_null or b_null):
+            a, b = self._string_codes(a, b)
+        n, dev = ctx.num_rows, ctx.device
+
+        def valid(v, null):
+            if null:
+                return torch.zeros(n, dtype=torch.bool, device=dev)
+            vv = value_validity(v)
+            return torch.ones(n, dtype=torch.bool, device=dev) \
+                if vv is None else vv
+
+        av, bv = valid(a, a_null), valid(b, b_null)
+        if a_null or b_null:
+            eq = torch.zeros(n, dtype=torch.bool, device=dev)
+        else:
+            eq = self.op(flush_subnormals(operand(a)),
+                         flush_subnormals(operand(b))).expand(n)
+        return ColV(dt.BOOLEAN, torch.where(av & bv, eq, ~av & ~bv), None)
+
+
 class And(Expression):
     """Spark 3VL: false AND null = false."""
 
@@ -175,6 +210,44 @@ class IsNotNull(Expression):
         return ColV(dt.BOOLEAN, v.validity, None)
 
 
+class IsNull(Expression):
+    def __init__(self, child):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return dt.BOOLEAN
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        if isinstance(v, Scalar):
+            return Scalar(dt.BOOLEAN, v.is_null)
+        if v.validity is None:
+            return Scalar(dt.BOOLEAN, False)
+        return ColV(dt.BOOLEAN, ~v.validity, None)
+
+
+class IsNaN(Expression):
+    """``isnan(x)``: false for a null x, never null."""
+
+    def __init__(self, child):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return dt.BOOLEAN
+
+    def eval(self, ctx):
+        v = self.children[0].eval(ctx)
+        if isinstance(v, Scalar):
+            return Scalar(dt.BOOLEAN, False if v.is_null else
+                          bool(np.isnan(v.value)))
+        data = torch.isnan(v.data)
+        if v.validity is not None:
+            data = data & v.validity
+        return ColV(dt.BOOLEAN, data, None)
+
+
 class In(Expression):
     """x IN (literals): an OR of equalities over x evaluated once. Null
     if x is null, or if nothing matches and the list holds a null."""
@@ -227,3 +300,31 @@ def _valid_or_true(v: ColV, ctx: EvalContext) -> torch.Tensor:
     if v.validity is not None:
         return v.validity
     return torch.ones(ctx.num_rows, dtype=torch.bool, device=ctx.device)
+
+
+class AtLeastNNonNulls(Expression):
+    """True where at least ``n`` children are neither null nor a float
+    NaN (a literal counts unless it is null)."""
+
+    def __init__(self, n: int, children: List[Expression]):
+        super().__init__(children)
+        self.n = n
+
+    @property
+    def dtype(self):
+        return dt.BOOLEAN
+
+    def eval(self, ctx):
+        count = torch.zeros(ctx.num_rows, dtype=torch.int32,
+                            device=ctx.device)
+        for c in self.children:
+            v = c.eval(ctx)
+            if isinstance(v, Scalar):
+                count = count + (0 if v.is_null else 1)
+                continue
+            ok = v.validity
+            if v.dtype.is_floating:
+                not_nan = ~torch.isnan(v.data)
+                ok = not_nan if ok is None else ok & not_nan
+            count = count + (1 if ok is None else ok.to(torch.int32))
+        return ColV(dt.BOOLEAN, count >= self.n, None)

@@ -34,8 +34,13 @@ no step combines rows of two groups, so error and poison stay in the
 group they belong to, and no float is added atomically. Integer sums
 and counts are exact prefix-sum differences (exact under wrap).
 
-The ops are the reference's but the central moments: sum, min, max,
-count, count_star, first, last and any_valid (the first valid value).
+The ops are the reference's: sum, min, max, count, count_star, first,
+last, any_valid (the first valid value) and the central moments' lanes:
+``sum_of_squares``, ``rterm`` ((sum x)^2 / n) and ``m2`` (the exact
+centred second moment: every row shifted by its group's first valid
+value d, then sum(d^2) - (sum d)^2 / n, clamped at 0; the whole-batch
+reduction centres on the mean). Their float lanes ride the float sums:
+the dense path's histogram, the sort path's fold.
 As on the reference's XLA backend, a float min, max or sum that is
 subnormal is a zero of its sign (``sortkeys.flush_subnormals``, C1), and
 so is the sort path's any_valid; first, last and the dense path's
@@ -63,7 +68,9 @@ from spark_rapids_tpu_torch.ops.sortkeys import (flush_subnormals,
                                                  stable_lexsort)
 
 AGG_OPS = ("sum", "min", "max", "count", "count_star", "first", "last",
-           "any_valid")
+           "any_valid", "sum_of_squares", "m2", "rterm")
+#: the central moments' ops: float64 lanes over the input as a double
+MOMENT_OPS = ("sum_of_squares", "m2", "rterm")
 
 #: above this many slots the per-slot sweep loses to the sort (the
 #: reference's bound)
@@ -116,6 +123,8 @@ def agg_result_dtype(spec: AggSpec, dtypes: Sequence[dt.DType]) -> dt.DType:
         raise NotImplementedError(f"aggregate op {spec.op!r} is not ported")
     if spec.op in ("count", "count_star"):
         return dt.INT64
+    if spec.op in MOMENT_OPS:
+        return dt.FLOAT64
     in_t = dtypes[spec.ordinal]
     if spec.op == "sum":
         return dt.INT64 if in_t.is_integral or in_t is dt.BOOLEAN \
@@ -199,6 +208,63 @@ def _zeros_ordered(x: torch.Tensor) -> torch.Tensor:
     return torch.where((x == 0) & torch.signbit(x), -fi.tiny * fi.eps, x)
 
 
+def _f64_rows(d: torch.Tensor, v: Optional[torch.Tensor]) -> torch.Tensor:
+    """The input as doubles, a null row 0.0."""
+    x = d.to(torch.float64)
+    return x if v is None else torch.where(v, x, torch.zeros_like(x))
+
+
+def _square(x: torch.Tensor) -> torch.Tensor:
+    x = flush_subnormals(x)
+    return flush_subnormals(x * x)
+
+
+def _rterm(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """(sum x)^2 / n, n at least 1."""
+    return flush_subnormals(_square(s) / n.clamp(min=1).to(torch.float64))
+
+
+def _m2(sd: torch.Tensor, sd2: torch.Tensor, n: torch.Tensor
+        ) -> torch.Tensor:
+    """max(sum(d^2) - (sum d)^2 / n, 0), the zeros ordered as XLA's max
+    orders them (-0.0 below +0.0)."""
+    m2 = flush_subnormals(sd2 - _rterm(sd, n))
+    return flush_subnormals(torch.maximum(_zeros_ordered(m2),
+                                          torch.zeros_like(m2)))
+
+
+def _centred(x: torch.Tensor, first: torch.Tensor,
+             v: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d, d^2) for each row: its value minus ``first`` (its group's
+    first valid value), 0.0 on a null row."""
+    d = flush_subnormals(flush_subnormals(x) - flush_subnormals(first))
+    if v is not None:
+        d = torch.where(v, d, torch.zeros_like(d))
+    return d, _square(d)
+
+
+def _moment_lanes(op: str, x: torch.Tensor, v: Optional[torch.Tensor],
+                  first) -> List[torch.Tensor]:
+    """The per-row lanes a moment op sums per group (``first()``: each
+    row's group's first valid value, asked for by ``m2`` only)."""
+    if op == "sum_of_squares":
+        return [_square(x)]
+    if op == "rterm":
+        return [x]
+    return list(_centred(x, first(), v))
+
+
+def _moment_value(op: str, sums: List[torch.Tensor],
+                  n: torch.Tensor) -> torch.Tensor:
+    """A moment op's value per group from its lanes' sums and the
+    group's valid rows ``n``."""
+    if op == "rterm":
+        return _rterm(sums[0], n)
+    if op == "m2":
+        return _m2(sums[0], sums[1], n)
+    return sums[0]
+
+
 def reduce_aggregate(batch: ColumnarBatch, aggs: List[AggSpec],
                      dtypes: List[dt.DType], device,
                      live_mask: Optional[torch.Tensor] = None
@@ -235,6 +301,24 @@ def reduce_aggregate(batch: ColumnarBatch, aggs: List[AggSpec],
             if v is not None:
                 x = torch.where(v, x, torch.zeros_like(x))
             data = _plus_zero(flush_subnormals(x.sum().reshape(1)))
+            validity = n_valid > 0
+        elif spec.op in MOMENT_OPS:
+            x = _f64_rows(d, v)
+
+            def total(y):
+                return _plus_zero(flush_subnormals(y.sum().reshape(1)))
+
+            if spec.op == "sum_of_squares":
+                data = total(_square(x))
+            elif spec.op == "rterm":
+                data = _rterm(total(x), n_valid)
+            else:  # the whole batch centres on its mean
+                mean = flush_subnormals(
+                    total(x) / n_valid.clamp(min=1).to(torch.float64))
+                dd = _centred(x, mean, v)[1]
+                data = flush_subnormals(torch.maximum(
+                    _zeros_ordered(total(dd)), torch.zeros(
+                        1, dtype=torch.float64, device=device)))
             validity = n_valid > 0
         elif spec.op in ("min", "max"):
             dd = d.to(torch.int8) if rtype is dt.BOOLEAN else \
@@ -399,20 +483,35 @@ def _dense_groupby(cols, dtypes, key_ordinals, aggs, live_mask, layout):
         return sizes if cols[o][1] is None else \
             counts[:, 1 + nullable.index(o)]
 
-    # every float sum in one histogram
-    float_sums = [i for i, s in enumerate(aggs) if s.op == "sum" and
-                  dtypes[s.ordinal].is_floating]
+    def first_valid(o):
+        """Per row, the value of the first valid row of its slot."""
+        at = _sweep(contributing(o), iota, total + 1, "amin", n)
+        d = cols[o][0].to(torch.float64)
+        return d[at.clamp(0, max(n - 1, 0))][codes]
+
+    # every float sum in one histogram: the float sums' inputs, then
+    # each moment's lanes (x^2; x; d and d^2)
+    lanes, at = [], {}
+    for i, spec in enumerate(aggs):
+        if spec.op == "count_star":
+            continue
+        d, v = cols[spec.ordinal]
+        if spec.op == "sum" and dtypes[spec.ordinal].is_floating:
+            at[i] = [len(lanes)]
+            lanes.append(_f64_rows(d, v))
+        elif spec.op in MOMENT_OPS:
+            new = _moment_lanes(spec.op, _f64_rows(d, v), v,
+                                lambda: first_valid(spec.ordinal))
+            at[i] = list(range(len(lanes), len(lanes) + len(new)))
+            lanes.extend(new)
     sums = {}
-    if float_sums:
-        xs = []
-        for i in float_sums:
-            d, v = cols[aggs[i].ordinal]
-            x = d.to(torch.float64)
-            xs.append(x if v is None else torch.where(v, x,
-                                                      torch.zeros_like(x)))
+    if lanes:
         totals = _plus_zero(flush_subnormals(per_slot(
-            codes[:, None].expand(n, len(xs)), torch.stack(xs, 1))[slots]))
-        sums = {i: totals[:, j] for j, i in enumerate(float_sums)}
+            codes[:, None].expand(n, len(lanes)),
+            torch.stack(lanes, 1))[slots]))
+        sums = {i: _moment_value(aggs[i].op, [totals[:, j] for j in js],
+                                 nvalid(aggs[i].ordinal)[slots])
+                for i, js in at.items()}
 
     agg_d, agg_v = [], []
     for i, spec in enumerate(aggs):
@@ -576,6 +675,23 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
         v = sorted_col(o)[1]
         return sizes if v is None else seg_sum_exact(v.to(torch.int64))
 
+    def first_valid_row(o):
+        """Each group's first valid row (its first row when none is)."""
+        v = sorted_col(o)[1]
+        if v is None:
+            return starts
+        seen = torch.cumsum(v.to(torch.int64), 0)
+        before = (seen - v.to(torch.int64))[starts]
+        return torch.searchsorted(seen, before + 1).clamp(
+            max=max(n_live - 1, 0))
+
+    def first_valid(o):
+        """Per sorted row, its group's first valid value, through
+        ``+ 0.0`` as the reference's segmented scan gives it."""
+        d = sorted_col(o)[0].to(torch.float64)
+        first = _plus_zero(flush_subnormals(d[first_valid_row(o)]))
+        return first[torch.cumsum(boundary.to(torch.int64), 0) - 1]
+
     # ---- 3. aggregates ----------------------------------------------------
     agg_d, agg_v = [None] * len(aggs), [None] * len(aggs)
     float_sums = []
@@ -595,13 +711,7 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
             continue
         agg_v[i] = nvalid(o) > 0
         if spec.op == "any_valid":
-            at = starts
-            if v is not None:  # each group's first valid row
-                seen = torch.cumsum(v.to(torch.int64), 0)
-                before = (seen - v.to(torch.int64))[starts]
-                at = torch.searchsorted(seen, before + 1).clamp(
-                    max=max(n_live - 1, 0))
-            agg_d[i] = _plus_zero(flush_subnormals(d[at]))
+            agg_d[i] = _plus_zero(flush_subnormals(d[first_valid_row(o)]))
         elif spec.op in ("min", "max"):
             dd = d.to(torch.int8) if dtypes[o] is dt.BOOLEAN else d
             fill = _fills(dtypes[o], dd.dtype)[spec.op == "max"]
@@ -610,11 +720,11 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
             vals = fold(dd, spec.op)
             agg_d[i] = vals.to(torch.bool) if dtypes[o] is dt.BOOLEAN \
                 else vals
+        elif spec.op in MOMENT_OPS:
+            float_sums.extend((i, y) for y in _moment_lanes(
+                spec.op, _f64_rows(d, v), v, lambda: first_valid(o)))
         elif dtypes[o].is_floating:  # float sums: one scan for all
-            x = d.to(torch.float64)
-            if v is not None:
-                x = torch.where(v, x, torch.zeros_like(x))
-            float_sums.append((i, x))
+            float_sums.append((i, _f64_rows(d, v)))
         else:
             x = d.to(torch.int64)
             if v is not None:
@@ -622,8 +732,11 @@ def _groupby(cols, dtypes, key_ordinals, aggs, live_mask=None,
             agg_d[i] = seg_sum_exact(x)
     if float_sums:
         sums = fold(torch.stack([x for _, x in float_sums], dim=1), "sum")
+        parts = {}
         for j, (i, _) in enumerate(float_sums):
-            agg_d[i] = sums[:, j]
+            parts.setdefault(i, []).append(sums[:, j])
+        for i, got in parts.items():
+            agg_d[i] = _moment_value(aggs[i].op, got, nvalid(aggs[i].ordinal))
 
     # ---- keys -------------------------------------------------------------
     key_d, key_v = [], []

@@ -34,10 +34,11 @@ class PlanNode:
 
 
 class InMemorySource:
-    """Host-resident columns: ``data`` maps name -> numpy array, or for
-    strings a ``HostStrings`` (codes into one sorted dictionary) or an
-    object array (None = null), which is encoded here once as a
-    ``HostStrings``; ``validity`` name -> bool mask."""
+    """Host-resident columns: ``data`` maps name -> numpy array (a masked
+    array's mask marks its nulls), or for strings a ``HostStrings``
+    (codes into one sorted dictionary) or an object array (None = null),
+    which is encoded here once as a ``HostStrings``; ``validity`` name ->
+    bool mask."""
 
     def __init__(self, data: dict, schema: Optional[Schema] = None,
                  validity: Optional[dict] = None):
@@ -46,6 +47,10 @@ class InMemorySource:
                          dt.from_numpy(np.asarray(v).dtype)
                          for v in data.values()])
         self.data, self.validity = dict(data), dict(validity or {})
+        for name, v in data.items():
+            if isinstance(v, np.ma.MaskedArray):
+                self.data[name] = np.ma.getdata(v)
+                self.validity.setdefault(name, ~np.ma.getmaskarray(v))
         for name, t in zip(self._schema.names, self._schema.types):
             v = self.data[name]
             if t is dt.STRING and not isinstance(v, HostStrings):

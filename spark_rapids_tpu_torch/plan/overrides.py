@@ -17,7 +17,10 @@ reference's XLA backend computes. Then, with
 ``rapids.tpu.sql.fusion.enabled`` true (the reference's default), the
 fusion pass (``execs.fused.fuse_pipelines``) turns chains of filters,
 projections and broadcast probes into fused execs; false keeps the
-unfused tree. Tagging and CPU fallback are not ported.
+unfused tree. Tagging and CPU fallback are not ported: a plan with an
+expression the reference marks ``incompat`` (the transcendental
+functions) is refused unless ``rapids.tpu.sql.incompatibleOps.enabled``
+is true.
 """
 from __future__ import annotations
 
@@ -50,9 +53,13 @@ OPTIMIZER_ENABLED = "rapids.tpu.sql.optimizer.enabled"
 FUSION_ENABLED = "rapids.tpu.sql.fusion.enabled"
 FUSION_SORT_TAIL = "rapids.tpu.sql.fusion.sortTail"
 FUSION_DENSE_PROBE_MAX_SPAN = "rapids.tpu.sql.fusion.denseProbe.maxSpan"
+#: whether the expressions whose results may differ from java.lang.Math
+#: in the last bits run (the reference's key and default; off, it runs
+#: them on its CPU engine, which the port lacks, so the port refuses)
+INCOMPATIBLE_OPS = "rapids.tpu.sql.incompatibleOps.enabled"
 _DEFAULTS = {BATCH_SIZE_ROWS: 1 << 21, OPTIMIZER_ENABLED: True,
              FUSION_ENABLED: True, FUSION_SORT_TAIL: True,
-             FUSION_DENSE_PROBE_MAX_SPAN: 1 << 22}
+             FUSION_DENSE_PROBE_MAX_SPAN: 1 << 22, INCOMPATIBLE_OPS: False}
 
 
 def apply_overrides(plan: pn.PlanNode, conf: Optional[dict] = None,
@@ -82,8 +89,33 @@ def _convert(node: pn.PlanNode, conf: dict, device, memo: dict
     return hit[1]
 
 
+def _refuse_incompatible(node: pn.PlanNode, conf: dict) -> None:
+    """Raise where ``node`` holds an ``incompat`` expression and
+    ``INCOMPATIBLE_OPS`` is off: the reference would run the node on its
+    CPU engine, which is not ported (ROADMAP A6)."""
+    if conf[INCOMPATIBLE_OPS]:
+        return
+    if isinstance(node, pn.ProjectNode):
+        exprs = node.exprs
+    elif isinstance(node, pn.AggregateNode):
+        exprs = node.grouping + [a.fn for a in node.aggs]
+    elif isinstance(node, (pn.FilterNode, pn.JoinNode)):
+        exprs = [node.condition] if node.condition is not None else []
+    else:
+        return
+    for e in exprs:
+        bad = e.collect(lambda x: getattr(x, "incompat", False))
+        if bad:
+            raise NotImplementedError(
+                f"{type(bad[0]).__name__} may differ from java.lang.Math "
+                f"in the last bits: it runs with {INCOMPATIBLE_OPS} true; "
+                "without it the reference runs it on its CPU engine, which "
+                "is not ported (ROADMAP A6)")
+
+
 def _convert_one(node: pn.PlanNode, conf: dict, device, memo: dict
                  ) -> TorchExec:
+    _refuse_incompatible(node, conf)
     kids = [_convert(c, conf, device, memo) for c in node.children]
     schema = node.output_schema()
     if isinstance(node, pn.ScanNode):

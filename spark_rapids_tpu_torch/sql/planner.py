@@ -13,13 +13,12 @@ sides.
 
 Whatever would build an expression or a node the port lacks raises
 ``SqlError`` naming it ("... is not ported yet"): window functions, set
-operations, ROLLUP, IN / EXISTS / scalar subqueries, CASE, unary
-minus, the datetime functions other than year, month, quarter, weekday,
-dayofweek, day and dayofmonth, the math and other scalar functions,
-aggregates other than sum, count, avg, min and max, DISTINCT aggregates
-the optimizer's rewrite refuses (other than count and sum, or over more
-than one column), cross joins, and left, right and full joins with a
-non-equi condition (which the reference runs on its CPU engine).
+operations, ROLLUP, IN / EXISTS / scalar subqueries, the string
+functions and string concatenation, DISTINCT aggregates the optimizer's
+rewrite refuses (other than count and sum, or over more than one
+column), cross joins, and left, right and full joins with a non-equi
+condition (which the reference runs on its CPU engine). CASE takes its
+type from its first typed branch, as the reference's planner does.
 None of them is planned differently from the reference; a right join is
 a ``JoinNode("right")``, which ``plan/overrides`` runs as a flipped left
 join, as the reference's does.
@@ -33,7 +32,9 @@ import numpy as np
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.expressions import aggregates as A
 from spark_rapids_tpu_torch.expressions import arithmetic as ar
+from spark_rapids_tpu_torch.expressions import conditional as cond
 from spark_rapids_tpu_torch.expressions import datetime as dte
+from spark_rapids_tpu_torch.expressions import math as mth
 from spark_rapids_tpu_torch.expressions import predicates as pr
 from spark_rapids_tpu_torch.expressions import strings as st
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
@@ -48,16 +49,20 @@ _AGG_FNS = {"sum", "count", "avg", "min", "max", "first", "last",
             "stddev_samp", "stddev", "std", "stddev_pop",
             "var_samp", "variance", "var_pop"}
 
-# the scalar functions the reference plans; of them only substring is
-# ported, the others raise "not ported yet" rather than "unknown"
-_REFERENCE_FNS = {
-    "abs", "sqrt", "floor", "ceil", "year", "month", "quarter", "weekday",
-    "dayofweek", "day", "dayofmonth", "upper", "lower", "trim", "ltrim",
-    "rtrim", "reverse", "initcap", "length", "substr", "substring",
-    "concat", "coalesce", "nvl", "pow", "power", "round", "pmod",
-    "datediff", "unix_timestamp", "to_unix_timestamp", "to_date", "nullif",
-    "greatest", "least", "exp", "log", "log2", "log10", "sin", "cos",
-    "tan"}
+# the string functions the reference plans: not ported, so they raise
+# "not ported yet" rather than "unknown"
+_STRING_FNS = {"upper", "lower", "trim", "ltrim", "rtrim", "reverse",
+               "initcap", "length", "concat"}
+
+#: the transcendental functions, as the reference's planner maps them
+_TRANSCENDENTAL = {"exp": mth.Exp, "log": mth.Log, "log2": mth.Log2,
+                   "log10": mth.Log10, "sin": mth.Sin, "cos": mth.Cos,
+                   "tan": mth.Tan}
+
+_MOMENTS = {"stddev_samp": A.StddevSamp, "stddev": A.StddevSamp,
+            "std": A.StddevSamp, "stddev_pop": A.StddevPop,
+            "var_samp": A.VarianceSamp, "variance": A.VarianceSamp,
+            "var_pop": A.VariancePop}
 
 #: the date functions, as the reference's planner maps them
 _DATE_FIELDS = {"year": dte.Year, "month": dte.Month,
@@ -127,6 +132,61 @@ class _Scope:
 
 
 def _fn_scalar(name: str, args: List[Expression]) -> Expression:
+    def need(n):
+        if len(args) != n:
+            raise SqlError(f"{name}() takes {n} arguments")
+
+    if name == "abs":
+        need(1)
+        return ar.Abs(args[0])
+    if name == "sqrt":
+        need(1)
+        return mth.Sqrt(args[0])
+    if name in ("floor", "ceil"):
+        need(1)
+        return (mth.Floor if name == "floor" else mth.Ceil)(args[0])
+    if name == "coalesce":
+        return cond.Coalesce(args)
+    if name == "nvl":
+        need(2)
+        return cond.Nvl(args[0], args[1])
+    if name in ("pow", "power"):
+        need(2)
+        return mth.Pow(args[0], args[1])
+    if name == "round":
+        if len(args) not in (1, 2):
+            raise SqlError("round(col[, scale])")
+        scale = _want_int_lit(args[1], "round scale") if len(args) == 2 \
+            else 0
+        return mth.Round(args[0], scale)
+    if name == "pmod":
+        need(2)
+        return ar.Pmod(args[0], args[1])
+    if name == "datediff":
+        need(2)
+        return dte.DateDiff(_as_date(args[0]), _as_date(args[1]))
+    if name in ("unix_timestamp", "to_unix_timestamp"):
+        # a format argument is taken and ignored, as the reference does
+        if not args:
+            raise SqlError(f"{name}(col[, fmt])")
+        return dte.UnixTimestamp(args[0])
+    if name == "to_date":
+        need(1)
+        return _as_date(args[0])
+    if name == "nullif":
+        need(2)
+        return cond.If(pr.EqualTo(args[0], args[1]),
+                       Literal(None, args[0].dtype), args[0])
+    if name in ("greatest", "least"):
+        if len(args) < 2:
+            raise SqlError(f"{name}() takes 2+ arguments")
+        if any(a.dtype is dt.STRING for a in args):
+            raise SqlError(f"{name}() over strings is unsupported")
+        return (cond.Greatest if name == "greatest" else
+                cond.Least)(args)
+    if name in _TRANSCENDENTAL:
+        need(1)
+        return _TRANSCENDENTAL[name](args[0])
     if name in ("substr", "substring"):
         if len(args) not in (2, 3):
             raise SqlError("substring(col, pos[, len])")
@@ -138,19 +198,18 @@ def _fn_scalar(name: str, args: List[Expression]) -> Expression:
         if len(args) != 1:
             raise SqlError(f"{name}() takes 1 arguments")
         return _DATE_FIELDS[name](args[0])
-    if name in _REFERENCE_FNS:
+    if name in _STRING_FNS:
         raise _not_ported(f"function {name}()")
     raise SqlError(f"unknown function {name}()")
 
 
-def _as_date_literal(e: Expression) -> Expression:
-    """A DATE literal from a DATE or string literal (the reference's
-    ``_as_date`` on literals); a column would need a cast."""
-    if isinstance(e, Literal) and e.dtype is dt.DATE:
+def _as_date(e: Expression) -> Expression:
+    """A DATE: a string literal parsed now, any other non-date cast."""
+    if e.dtype is dt.DATE:
         return e
     if isinstance(e, Literal) and isinstance(e.value, str):
         return Literal(_date_days(e.value), dt.DATE)
-    raise _not_ported("date arithmetic over a column")
+    return Cast(e, dt.DATE)
 
 
 def _want_int_lit(e: Expression, what: str) -> int:
@@ -204,7 +263,7 @@ class _ExprPlanner:
             e = self.plan(ast[1])
             if isinstance(e, Literal) and isinstance(e.value, (int, float)):
                 return Literal(-e.value)
-            raise _not_ported("unary minus over a column")
+            return ar.UnaryMinus(e)
         if kind == "interval":
             raise SqlError("INTERVAL only valid in date +/- interval")
         if kind == "arith":
@@ -227,9 +286,7 @@ class _ExprPlanner:
             return pr.Not(self.plan(ast[1]))
         if kind == "isnull":
             e = self.plan(ast[1])
-            if ast[2]:
-                return pr.IsNotNull(e)
-            raise _not_ported("IS NULL")
+            return pr.IsNotNull(e) if ast[2] else pr.IsNull(e)
         if kind == "between":
             e = self.plan(ast[1])
             lo = self.plan(ast[2])
@@ -250,7 +307,7 @@ class _ExprPlanner:
                 raise SqlError("LIKE pattern must be a string literal")
             return st.Like(e, pat.value)
         if kind == "case":
-            raise _not_ported("CASE")
+            return self._case(ast)
         if kind == "cast":
             return self._cast(ast)
         if kind == "call":
@@ -272,15 +329,21 @@ class _ExprPlanner:
 
     def _arith(self, ast) -> Expression:
         _, op, l, r = ast
-        # date +/- INTERVAL 'n' DAY folds over literals only
+        # date +/- INTERVAL 'n' DAY (the day count's sign as the
+        # reference's planner takes it)
         if isinstance(r, tuple) and r[0] == "interval" and \
                 op in ("+", "-"):
-            base = _as_date_literal(self.plan(l))
+            base = _as_date(self.plan(l))
             n = r[1] if op == "+" else -r[1]
-            return Literal(base.value + n, dt.DATE)
+            if isinstance(base, Literal):
+                return Literal(base.value + n, dt.DATE)
+            return (dte.DateAdd if op == "+" else
+                    dte.DateSub)(base, Literal(abs(n), dt.INT32))
         if isinstance(l, tuple) and l[0] == "interval" and op == "+":
-            base = _as_date_literal(self.plan(r))
-            return Literal(base.value + l[1], dt.DATE)
+            base = _as_date(self.plan(r))
+            if isinstance(base, Literal):
+                return Literal(base.value + l[1], dt.DATE)
+            return dte.DateAdd(base, Literal(l[1], dt.INT32))
         lhs, rhs = self.plan(l), self.plan(r)
         if isinstance(lhs, Literal) and isinstance(rhs, Literal) \
                 and lhs.value is not None and rhs.value is not None \
@@ -296,11 +359,30 @@ class _ExprPlanner:
             v = {"+": lambda a, b: a + b, "-": lambda a, b: a - b,
                  "*": lambda a, b: a * b}[op](lhs.value, rhs.value)
             return Literal(v)
-        if op == "%":
-            raise _not_ported("the remainder operator %")
         klass = {"+": ar.Add, "-": ar.Subtract, "*": ar.Multiply,
-                 "/": ar.Divide}[op]
+                 "/": ar.Divide, "%": ar.Remainder}[op]
         return klass(lhs, rhs)
+
+    def _case(self, ast) -> Expression:
+        """CASE WHEN: a bare NULL branch takes the type of the first
+        typed branch ("CASE WHEN m = 0 THEN null ELSE s / m END"), and
+        so does the result, even where Spark would widen."""
+        _, whens, els = ast
+        null_ast = ("lit", None, "null")
+        pairs = [(self.plan(c), None if v == null_ast else self.plan(v))
+                 for c, v in whens]
+        els_e = None if (els is None or els == null_ast) else \
+            self.plan(els)
+        typed = [v for _c, v in pairs if v is not None]
+        if els_e is not None:
+            typed.append(els_e)
+        if not typed:
+            raise SqlError("CASE with all-NULL branches is untyped")
+        nt = typed[0].dtype
+        pairs = [(c, Literal(None, nt) if v is None else v)
+                 for c, v in pairs]
+        return cond.CaseWhen(pairs, Literal(None, nt) if els_e is None
+                             else els_e)
 
     def _cast(self, ast) -> Expression:
         to = _CAST_TYPES.get(ast[2])
@@ -352,7 +434,8 @@ def _plan_agg_call(ast, scope: _Scope, env=None) -> A.AggregateFunction:
         return A.Sum(arg, distinct=distinct)
     if distinct:
         raise SqlError(f"{name}(DISTINCT) is unsupported")
-    ported = {"avg": A.Average, "min": A.Min, "max": A.Max}
+    ported = {"avg": A.Average, "min": A.Min, "max": A.Max,
+              "first": A.First, "last": A.Last, **_MOMENTS}
     if name not in ported:
         raise _not_ported(f"aggregate {name}()")
     return ported[name](arg)

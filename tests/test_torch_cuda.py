@@ -946,3 +946,235 @@ def test_c7_queries_card_equal_cpu():
         _bits_equal(*out)
         signs = np.signbit(np.asarray(out[0]["m"], np.float64))
         assert signs.all() == ("wide" not in text), text
+
+
+def _same_values(got: dict, want: dict):
+    """Bit for bit, a null as None and a NaN by its bits."""
+    assert list(got) == list(want)
+    for c in want:
+        g = np.asarray(got[c], dtype=object).tolist()
+        w = np.asarray(want[c], dtype=object).tolist()
+        assert len(g) == len(w), c
+        for a, b in zip(g, w):
+            if a is None or b is None:
+                assert a is None and b is None, c
+            elif isinstance(a, float) or isinstance(b, float):
+                assert np.float64(a).view(np.int64) == \
+                    np.float64(b).view(np.int64), c
+            else:
+                assert a == b, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dense", "sort", "grand"])
+def test_moments_card_equal_cpu(path):
+    """The central moments' lanes (sum, count, m2, rterm, sum_of_squares)
+    on the card and on the CPU, bit for bit: on the sort path through the
+    S1 kernel (one launch), on the dense path through the per-block
+    histograms (integer-valued doubles, so any order of the adds is
+    exact), and with no key; a group of one row, one of nulls only and a
+    constant one among them."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
+    from spark_rapids_tpu_torch.columnar.column import HostRange
+    from spark_rapids_tpu_torch.ops import groupby as gb
+
+    dev = _card()
+    r = np.random.default_rng(29)
+    n = 300_000
+    key = r.integers(3, 100 if path == "dense" else 200_000, n)
+    key[:1], key[1:5], key[5:12] = 0, 1, 2
+    x = (r.integers(-1000, 1000, n).astype(np.float64) if path == "dense"
+         else r.standard_normal(n) * 100 + 7)
+    x[5:12] = 2.5
+    valid = r.random(n) > 0.1
+    valid[1:5] = False
+    specs = [gb.AggSpec(op, 1) for op in ("sum", "count", "m2", "rterm",
+                                          "sum_of_squares")]
+    types = [dt.INT64, dt.FLOAT64]
+    out = []
+    for d in (dev, "cpu"):
+        b = batch_from_numpy([key.astype(np.int64), x], types,
+                             [None, valid], [None, None], device=d)
+        if path == "dense":
+            b.columns[0].stats = HostRange.known(0, 99)
+        nk.reset_launches()
+        if path == "grand":
+            got, _ = gb.reduce_aggregate(b, specs, types, d)
+        else:
+            got, _ = gb.groupby_aggregate(b, [0], specs, types)
+        if d == dev:
+            assert nk.LAUNCHES["seg_sum"] == (1 if path == "sort" else 0)
+        cols = {}
+        for i, c in enumerate(got.columns):
+            data, v = c.to_numpy()
+            vals = data.astype(object)
+            if v is not None:
+                vals[~v] = None
+            cols[str(i)] = vals
+        out.append(cols)
+    _same_values(*out)
+
+
+@pytest.mark.cuda
+def test_new_expressions_card_equal_cpu():
+    """CASE, COALESCE, round at scales 0, 2 and 7, %, pmod and sqrt over
+    seeded doubles (with -0.0, NaN, the infinities, 1e-310 and halves)
+    and integers (with their limits and -1) on the card and on the CPU,
+    bit for bit (the CPU's remainder and square root are libm's, the
+    card's CUDA's, both exact)."""
+    from spark_rapids_tpu_torch.api import Session
+    from spark_rapids_tpu_torch.plan import nodes as pn
+
+    dev = _card()
+    r = np.random.default_rng(31)
+    n = 20_000
+    edges = [0.0, -0.0, 1e-310, -1e-310, np.nan, np.inf, -np.inf, 0.5,
+             -2.5, 1e308, 2.0 ** 63]
+    d = r.standard_normal(n) * 10.0 ** r.integers(-6, 7, n)
+    d[:len(edges)] = edges
+    e = r.standard_normal(n) * 10.0 ** r.integers(-3, 4, n)
+    e[len(edges):2 * len(edges)] = edges
+    k = r.integers(-10_000, 10_000, n)
+    h = np.choose(r.integers(0, 3, n), [k + 0.5, k / 100 + 0.005,
+                                        k / 1e7 + 5e-8])
+    i = r.integers(-100, 100, n).astype(np.int64)
+    i[:4] = [-2 ** 63, 2 ** 63 - 1, -1, 0]
+    j = r.integers(-5, 5, n).astype(np.int64)
+    cols = {"d": d, "e": e, "h": h, "i": i, "j": j}
+    valid = {"e": r.random(n) > 0.1, "j": r.random(n) > 0.1}
+    text = ("SELECT CASE WHEN d > 0.0 THEN d WHEN j IS NULL THEN e "
+            "ELSE -1.5 END AS c, coalesce(e, h, 0.0) AS co, "
+            "round(h) AS r0, round(h, 2) AS r2, round(d, 7) AS r7, "
+            "d % e AS m, pmod(d, e) AS p, pmod(i, j) AS pi, i % j AS mi, "
+            "sqrt(d) AS s FROM t")
+    out = []
+    for on in (dev, "cpu"):
+        s = Session(device=on)
+        s.create_temp_view("t", pn.InMemorySource(dict(cols),
+                                                  validity=valid))
+        out.append(s.sql(text).collect())
+    _same_values(*out)
+
+
+# the functions the reference tags incompat, and cbrt: case -> (class,
+# operands), over the columns of ``_incompat_columns``
+_INCOMPAT_CASES = {
+    "exp": ("Exp", ["e"]), "expm1": ("Expm1", ["e"]),
+    "log": ("Log", ["d"]), "log1p": ("Log1p", ["e"]),
+    "log2": ("Log2", ["d"]), "log10": ("Log10", ["d"]),
+    "sin": ("Sin", ["e"]), "cos": ("Cos", ["e"]), "tan": ("Tan", ["e"]),
+    "asin": ("Asin", ["r"]), "acos": ("Acos", ["r"]),
+    "atan": ("Atan", ["d"]), "sinh": ("Sinh", ["e"]),
+    "cosh": ("Cosh", ["e"]), "tanh": ("Tanh", ["d"]),
+    "asinh": ("Asinh", ["d"]), "acosh": ("Acosh", ["d"]),
+    "atanh": ("Atanh", ["r"]), "cot": ("Cot", ["e"]),
+    "pow": ("Pow", ["e", "r"]), "logarithm": ("Logarithm", ["r", "d"]),
+    "atan2": ("Atan2", ["d", "e"]), "cbrt": ("Cbrt", ["d"]),
+}
+#: the largest gap, card against CPU (CUDA's libm against torch's CPU
+#: one), in units in the last place over those columns (ROADMAP Queue C)
+_CARD_ULPS = {"exp": 1, "expm1": 1, "log": 1, "log1p": 1, "log2": 1,
+              "log10": 1, "sin": 1, "cos": 1, "tan": 2, "asin": 2,
+              "acos": 1, "atan": 1, "sinh": 1, "cosh": 1, "tanh": 1,
+              "asinh": 2, "acosh": 1, "atanh": 2, "cot": 2, "pow": 1,
+              "logarithm": 1, "atan2": 1, "cbrt": 1}
+
+
+def _incompat_columns(n):
+    """Seeded doubles of every magnitude with -0.0, NaN, the infinities,
+    1e-310 and the long limits (``d``; ``e`` the same edges reversed and
+    nullable) and halves at scales 0, 2 and 7 (``r``)."""
+    r = np.random.default_rng(33)
+    edges = [0.0, -0.0, 1e-310, -1e-310, np.nan, np.inf, -np.inf, 0.5,
+             -0.5, 1.5, -2.5, 1e308, -1e308, 3.0, 7.0, -7.0, 1.0, -1.0,
+             2.0 ** 53, -(2.0 ** 63), 2.0 ** 63, 1e-300]
+    d = r.standard_normal(n) * 10.0 ** r.integers(-6, 7, n)
+    d[:len(edges)] = edges
+    e = r.standard_normal(n) * 10.0 ** r.integers(-3, 4, n)
+    e[:len(edges)] = edges[::-1]
+    e[len(edges):2 * len(edges)] = edges
+    k = r.integers(-10_000, 10_000, n)
+    h = np.choose(r.integers(0, 3, n), [k + 0.5, k / 100 + 0.005,
+                                        k / 1e7 + 5e-8])
+    h[:len(edges)] = edges
+    return {"d": d, "e": e, "r": h}, {"e": r.random(n) > 0.15}
+
+
+def _incompat_projection(on, n=20_000):
+    """``_INCOMPAT_CASES`` in one projection on ``on``, with
+    ``rapids.tpu.sql.incompatibleOps.enabled``."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.execs.base import collect
+    from spark_rapids_tpu_torch.expressions import math as tmath
+    from spark_rapids_tpu_torch.expressions.base import (Alias,
+                                                         BoundReference)
+    from spark_rapids_tpu_torch.plan import nodes as pn
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+
+    cols, valid = _incompat_columns(n)
+    names = list(cols)
+    projs = [Alias(getattr(tmath, klass)(
+                 *[BoundReference(names.index(a), dt.FLOAT64)
+                   for a in args]), case)
+             for case, (klass, args) in _INCOMPAT_CASES.items()]
+    plan = pn.ProjectNode(projs, pn.ScanNode(
+        pn.InMemorySource(cols, validity=valid)))
+    return collect(apply_overrides(
+        plan, {"rapids.tpu.sql.incompatibleOps.enabled": True}, device=on))
+
+
+def _ulp_gap(got, want) -> np.ndarray:
+    """The distance of two columns of doubles in units in the last place
+    (the doubles' order on their bit patterns): 0 for two nulls or two
+    NaN, 2^62 where only one is null or only one NaN."""
+    def ordered(col):
+        v = np.asarray(col, dtype=object)
+        null = np.array([x is None for x in v.tolist()], dtype=bool)
+        f = np.where(null, 0.0, v).astype(np.float64)
+        i = f.view(np.int64)
+        key = np.where(i < 0, -(i & np.int64(2 ** 63 - 1)), i)
+        return key.astype(object), null, np.isnan(f)
+    (a, an, anan), (b, bn, bnan) = ordered(got), ordered(want)
+    gap = np.abs(a - b)
+    gap[(an & bn) | (anan & bnan)] = 0
+    gap[(an ^ bn) | (anan ^ bnan)] = 1 << 62
+    return gap
+
+
+@pytest.mark.cuda
+def test_incompatible_functions_card_within_stated_ulps():
+    """The incompatible transcendentals (and cbrt) with
+    ``rapids.tpu.sql.incompatibleOps.enabled`` on the card against the
+    CPU: nulls alike, every value within ``_CARD_ULPS``."""
+    dev = _card()
+    got, want = (_incompat_projection(on) for on in (dev, "cpu"))
+    worst = {c: int(_ulp_gap(got[c], want[c]).max()) for c in want}
+    assert all(worst[c] <= _CARD_ULPS[c] for c in worst), \
+        " ".join(f"{c}={w}" for c, w in worst.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query, tree", [("q16", "unfused"),
+                                         ("q23_2002", "fused")])
+def test_tpcxbb_query_card_equals_cpu(query, tree):
+    """A TPCx-BB query at sf 0.1 on the card and on the CPU, bit for bit
+    (the sort path's float sums fold in one order on both; q23_2002's
+    standard deviations are over integers): q16 on the unfused tree (its
+    two-key left join probes by hash), q23_2002 on the default one."""
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+    from spark_rapids_tpu_torch.execs.base import collect
+    from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+
+    dev = _card()
+    t = tpcxbb.gen_tables(0.1)
+    conf = {"rapids.tpu.sql.fusion.enabled": tree == "fused"}
+    out = []
+    for on in (dev, "cpu"):
+        nk.reset_launches()
+        out.append(collect(apply_overrides(tpcxbb.plan(query, t), conf,
+                                           device=on)))
+        if on == dev:
+            assert nk.LAUNCHES["probe"] > 0
+    assert len(next(iter(out[1].values()))) > 0
+    _same_values(*out)

@@ -469,6 +469,10 @@ _C6_PATHS = [
     "SELECT a.k, min(b.w) AS m FROM a JOIN b ON a.k = b.k GROUP BY a.k",
     "SELECT wide, min(z) AS m FROM a GROUP BY wide",
     "SELECT k, dt, min(z) AS m FROM a GROUP BY k, dt",
+    "SELECT p, min(z) AS m FROM (SELECT pmod(wide, 4) AS p, z FROM a) x "
+    "GROUP BY p",
+    "SELECT p, min(z) AS m FROM (SELECT pmod(wide, -4) AS p, z FROM a) x "
+    "GROUP BY p",
 ]
 
 
@@ -519,7 +523,8 @@ def test_numeric_key_takes_dense_path_where_reference_does(c6_paths, case):
     reference's does (a min of -0.0 is -0.0 there, +0.0 on the sort
     path): straight from the scan, through a projection of device-only
     expressions (a reference, a cast, ``+ - *`` by an integer literal,
-    ``year``), after a device-only filter the aggregate takes as a live
+    ``year``, ``pmod`` by a positive literal, even of a key past 128
+    slots), after a device-only filter the aggregate takes as a live
     mask; not after a string predicate, a filter below a projection, a
     projection with a string function or a join, nor past 128 slots."""
     want, got = c6_paths[_C6_PATHS[case]]

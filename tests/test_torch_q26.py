@@ -42,10 +42,10 @@ def test_generators_match_reference():
     ss_ref = tpcds.gen_store_sales(SF)
     it_ref = tpcds.gen_item(SF)
     ss, it = ttpcds.gen_store_sales(SF), ttpcds.gen_item(SF)
-    for name in tpcxbb.Q26_SS_COLUMNS:
+    for name in tpcxbb.READS["q26"]["store_sales"]:
         np.testing.assert_array_equal(ss[name],
                                       ss_ref.column(name).to_numpy())
-    for name in tpcxbb.Q26_ITEM_COLUMNS:
+    for name in tpcxbb.READS["q26"]["item"]:
         want = it_ref.column(name).to_numpy(zero_copy_only=False)
         got = it[name]
         if isinstance(got, HostStrings):  # decoded to compare
